@@ -1,0 +1,323 @@
+"""Batched CRT fast path for the gold (Python-int) Paillier pipeline.
+
+Port of ``repro.core.paillier_batch`` (its single-key part): a whole batch
+of ModExps runs on the limb kernels (``kernels/ops.py``) in the paper's
+two CRT half-width spaces Z_{p^2} x Z_{q^2} (eqs. 35-40), and the eq. (38)
+recombination is done once per batch in limb space
+(:func:`paillier_vec.crt_combine_batch`).  Ciphertexts stay resident on
+the device as :class:`~repro_torch.core.cipher_tensor.CipherTensor`
+batches between protocol ops; Python ints appear only where plaintexts
+enter or leave.
+
+Bit-exactness: every function returns exactly what the scalar gold
+functions return for the same inputs and the same ``random.Random``
+stream.  A :class:`BatchKey` names the device its tensors live on; the
+reference's multi-chip batch sharding (``_shard_batch``) is the identity
+on one card and is left out.
+
+Preconditions shared by all batched ModExps: bases must be units mod n
+(ciphertexts and blinding factors are).  Negative exponents are handled
+exactly as CPython's ``pow``: the base is inverted mod n^2 host-side and
+the ladder runs on ``-e``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import random
+import time
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from . import bigint as bi
+from . import paillier as gold
+from . import paillier_vec as pv
+from .cipher_tensor import CipherTensor
+from ..kernels import ops
+
+# Below this batch size the per-launch overhead dominates and callers keep
+# the scalar gold path (the protocol boxes apply this threshold).
+BATCH_MIN = 8
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class BatchKey:
+    """Gold key + the limb-packed material the kernels need + the device."""
+    key: gold.PaillierKey
+    vk: pv.VecKey
+    device: torch.device
+
+
+@functools.lru_cache(maxsize=None)
+def _batch_key(key: gold.PaillierKey, device: str) -> BatchKey:
+    return BatchKey(key=key, vk=pv.make_vec_key(key),
+                    device=torch.device(device))
+
+
+def make_batch_key(key: gold.PaillierKey, device=None) -> BatchKey:
+    """Limb-pack ``key`` for ``device`` (default cuda; cached per pair)."""
+    return _batch_key(key, str(resolve_device(device)))
+
+
+def rand_r_vec(key: gold.PaillierKey, count: int,
+               rng: random.Random) -> list[int]:
+    """``count`` blinding units r in Z*_n — same stream as repeated
+    :func:`gold.rand_r`."""
+    return [gold.rand_r(key, rng) for _ in range(count)]
+
+
+def _limbs(bk: BatchKey, ints, L: int) -> torch.Tensor:
+    return torch.as_tensor(bi.from_ints(ints, L), device=bk.device)
+
+
+# ---------------------------------------------------------------------------
+# Core primitive: batched base^e mod n^2 via the CRT half spaces
+# ---------------------------------------------------------------------------
+
+def _norm_exps(exps, batch: int) -> list[int]:
+    if isinstance(exps, (int, np.integer)):
+        exps = [int(exps)] * batch
+    else:
+        exps = [int(e) for e in exps]
+    if len(exps) != batch:
+        raise ValueError(f"{len(exps)} exponents for a batch of {batch}")
+    return exps
+
+
+def _halves(bk: BatchKey, bp, bq, exps, scalar_e, fixed: bool):
+    """x' = bp^e mod p^2, x'' = bq^e mod q^2, recombined mod n^2."""
+    key, vk = bk.key, bk.vk
+    if fixed and scalar_e is not None:
+        xp = ops.modexp_fixed(bp, scalar_e % key.phi_p2, vk.pack_p2)
+        xq = ops.modexp_fixed(bq, scalar_e % key.phi_q2, vk.pack_q2)
+    else:
+        ep = [e % key.phi_p2 for e in exps]
+        eq = [e % key.phi_q2 for e in exps]
+        le = max(1, max(bi.n_limbs_for(e) for e in ep + eq))
+        xp = ops.modexp(bp, _limbs(bk, ep, le), vk.pack_p2)
+        xq = ops.modexp(bq, _limbs(bk, eq, le), vk.pack_q2)
+    return pv.crt_combine_batch(vk, xp, xq)
+
+
+def modexp_crt_limbs(bk: BatchKey, bases: Sequence[int], exps,
+                     fixed: bool = False) -> torch.Tensor:
+    """[b^e mod n^2] as (B, L16(n^2)) limbs; ``exps`` scalar or per-element.
+
+    ``fixed=True`` runs a SCALAR exponent through the host-known
+    fixed-window ladder (``ops.modexp_fixed``); per-element exponent
+    lists ignore the flag.  Exponent limbs size to the batch maximum
+    after the phi reduction.
+    """
+    key, vk = bk.key, bk.vk
+    B = len(bases)
+    bases = [int(b) for b in bases]
+    scalar_e = int(exps) if isinstance(exps, (int, np.integer)) else None
+    exps = _norm_exps(exps, B)
+    for i, e in enumerate(exps):
+        if e < 0:   # pow()-compatible: invert the base (egcd), negate e
+            bases[i] = pow(bases[i], -1, key.n2)
+            exps[i] = -e
+    bp = _limbs(bk, [b % key.p2 for b in bases], vk.pack_p2.L16)
+    bq = _limbs(bk, [b % key.q2 for b in bases], vk.pack_q2.L16)
+    if scalar_e is not None:
+        scalar_e = abs(scalar_e)
+    return _halves(bk, bp, bq, exps, scalar_e, fixed)
+
+
+def modexp_crt_limbs_in(bk: BatchKey, base_limbs: torch.Tensor, exps,
+                        fixed: bool = False) -> torch.Tensor:
+    """:func:`modexp_crt_limbs` for bases already resident in limb form
+    (a :class:`CipherTensor`'s payload): the reduction into the two half
+    spaces runs on the device (``paillier_vec._reduce_into``).  Exponents
+    must be nonnegative."""
+    vk = bk.vk
+    B = int(base_limbs.shape[0])
+    scalar_e = int(exps) if isinstance(exps, (int, np.integer)) else None
+    exps = _norm_exps(exps, B)
+    if any(e < 0 for e in exps):
+        raise ValueError("limb-resident ModExp needs nonnegative exponents")
+    bp = pv._reduce_into(base_limbs, vk.pack_p2)
+    bq = pv._reduce_into(base_limbs, vk.pack_q2)
+    return _halves(bk, bp, bq, exps, scalar_e, fixed)
+
+
+def modexp_crt_vec(bk: BatchKey, bases: Sequence[int], exps,
+                   fixed: bool = False) -> list[int]:
+    """Int-in/int-out batched ``pow(b, e, n^2)`` (see modexp_crt_limbs)."""
+    if not len(bases):
+        return []
+    return bi.to_ints(modexp_crt_limbs(bk, bases, exps, fixed=fixed))
+
+
+def pow_c_vec(bk: BatchKey, cs, ks, fixed: bool = False) -> list[int]:
+    """Batched plaintext-constant multiply ⊗: [c^k mod n^2] elementwise."""
+    if isinstance(cs, CipherTensor):
+        return pow_c_ct(bk, cs, ks, fixed=fixed).to_ints()
+    return modexp_crt_vec(bk, cs, ks, fixed=fixed)
+
+
+def pow_c_ct(bk: BatchKey, cs: CipherTensor, ks,
+             fixed: bool = False) -> CipherTensor:
+    """Limb-in/limb-out ⊗ over a resident ciphertext batch."""
+    exps = _norm_exps(ks, len(cs))
+    if any(e < 0 for e in exps):   # host base inversion: materialize once
+        return CipherTensor(
+            bk, modexp_crt_limbs(bk, cs.to_ints(), ks, fixed=fixed))
+    return CipherTensor(bk, modexp_crt_limbs_in(bk, cs.limbs, ks,
+                                                fixed=fixed))
+
+
+# ---------------------------------------------------------------------------
+# Encryption / decryption / homomorphic matvec
+# ---------------------------------------------------------------------------
+
+def _enc_ct_impl(bk: BatchKey, ms: list[int], rs: list[int]) -> CipherTensor:
+    """g=n+1 encryption in limb space: c = (1 + m n) * r^n mod n^2, with
+    r^n through the CRT half spaces; the ciphertexts are born resident."""
+    key, vk = bk.key, bk.vk
+    rn = modexp_crt_limbs(bk, rs, key.n, fixed=True)
+    m_limbs = _limbs(bk, [m % key.n for m in ms], vk.pack_n.L16)
+    gm = bi.mul(m_limbs, pv._row(vk.n_limbs, m_limbs),
+                out_limbs=vk.pack_n2.L16)                   # m*n < n^2
+    gm = bi.add(gm, pv._one(gm.shape[-1], gm))              # 1 + m n
+    return CipherTensor(bk, ops.mulmod(gm, rn, vk.pack_n2))
+
+
+def enc_ct(bk: BatchKey, ms, rng: random.Random) -> CipherTensor:
+    """Batched g=n+1 encryption, limb-out: one launch for all blindings.
+
+    Draws r exactly like the scalar loop (same rng stream); the result
+    materializes to ints bit-identical to
+    ``[gold.encrypt_crt(key, m, rand_r(key, rng)) for m in ms]``.
+    """
+    key = bk.key
+    if key.g != key.n + 1:
+        raise NotImplementedError("batched path uses the g = n+1 fast path")
+    ms = [int(m) for m in np.asarray(ms, dtype=object).reshape(-1)]
+    if not ms:
+        return CipherTensor(bk, torch.zeros((0, bk.vk.pack_n2.L16),
+                                            dtype=torch.int32,
+                                            device=bk.device), ints=[])
+    rs = rand_r_vec(key, len(ms), rng)
+    return _enc_ct_impl(bk, ms, rs)
+
+
+def add_ct(bk: BatchKey, c1: CipherTensor, c2: CipherTensor) -> CipherTensor:
+    """⊕ on resident batches: one batched Barrett mulmod launch mod n^2."""
+    return CipherTensor(bk, ops.mulmod(c1.limbs, c2.limbs, bk.vk.pack_n2))
+
+
+def dec_vec(bk: BatchKey, cs) -> list[int]:
+    """Batched decryption: c^lam for the whole batch in one CRT launch.
+
+    L(x) = (x-1)/n and the mu multiply stay on the host.  Bit-identical to
+    ``[gold.decrypt_crt(key, c) for c in cs]``; a :class:`CipherTensor`
+    decrypts straight off its resident limbs.
+    """
+    key = bk.key
+    if isinstance(cs, CipherTensor):
+        if not len(cs):
+            return []
+        x = bi.to_ints(modexp_crt_limbs_in(bk, cs.limbs, key.lam,
+                                           fixed=True))
+    else:
+        x = modexp_crt_vec(bk, cs, key.lam, fixed=True)
+    return [(xi - 1) // key.n * key.mu % key.n for xi in x]
+
+
+def matvec_many(bk: BatchKey, Ks, cs_list: Sequence) -> list:
+    """Fused homomorphic matvecs: out[b][i] = prod_j cs[b][j]^{Ks[b,i,j]}.
+
+    All B*(M, N) exponent blocks flatten into ONE batched CRT ModExp
+    launch per half space, then one shared log-depth mulmod tree reduces
+    the rows mod n^2.  Limb-resident in (every entry a CipherTensor) gives
+    CipherTensor rows out; int sequences keep int-in/int-out.  Negative
+    exponents force the materialized general path.
+    """
+    key, vk = bk.key, bk.vk
+    Ks = np.asarray(Ks, dtype=object)
+    B, M, N = Ks.shape
+    if len(cs_list) != B:
+        raise ValueError(f"{len(cs_list)} ciphertext vectors for B={B}")
+    if B == 0:
+        return []
+    ct_in = all(isinstance(c, CipherTensor) for c in cs_list)
+    for b, row in enumerate(cs_list):
+        if len(row) != N:
+            raise ValueError(f"ciphertext vector {b} has {len(row)} != {N}")
+    exps = _norm_exps(Ks.reshape(-1), B * M * N)
+    L2 = vk.pack_n2.L16
+    if any(e < 0 for e in exps):
+        rows = [int(c) for row in cs_list for c in row]  # materializes CTs
+        bases = [rows[b * N + j] for b in range(B)
+                 for _ in range(M) for j in range(N)]
+        powed = modexp_crt_limbs(bk, bases, exps)
+    else:
+        if ct_in:
+            c = torch.cat([c.limbs for c in cs_list], dim=0)
+            bp = pv._reduce_into(c, vk.pack_p2)
+            bq = pv._reduce_into(c, vk.pack_q2)
+        else:
+            rows = [int(c) for row in cs_list for c in row]
+            bp = _limbs(bk, [c % key.p2 for c in rows], vk.pack_p2.L16)
+            bq = _limbs(bk, [c % key.q2 for c in rows], vk.pack_q2.L16)
+
+        def bcast(x):   # (B*N, L) -> (B*M*N, L): row b's vector, M times
+            x = x.reshape(-1, 1, N, x.shape[-1])
+            return x.expand(x.shape[0], M, N, x.shape[-1]).reshape(
+                -1, x.shape[-1])
+
+        powed = _halves(bk, bcast(bp), bcast(bq), exps, None, False)
+    out = pv.mul_tree(vk, powed.reshape(-1, N, L2))
+    if ct_in:
+        return [CipherTensor(bk, out[b * M:(b + 1) * M]) for b in range(B)]
+    ints = bi.to_ints(out)
+    return [ints[b * M:(b + 1) * M] for b in range(B)]
+
+
+def matvec_vec(bk: BatchKey, K, cs):
+    """Single homomorphic matvec (M, N) x (N,) -> (M,), batched kernels;
+    a :class:`CipherTensor` in gives one out."""
+    K = np.asarray(K, dtype=object)
+    cs = cs if isinstance(cs, CipherTensor) else list(cs)
+    return matvec_many(bk, K[None], [cs])[0]
+
+
+def warmup(bk: BatchKey, shapes: Sequence) -> dict:
+    """Run the batched ops once at the given shapes, so the kernels are
+    built and loaded before a measured run.
+
+    ``shapes`` entries: an int ``B`` warms enc, dec and ⊕ at batch B; a
+    ``(B, M, N)`` tuple warms the fused limb-resident matvec at 1- and
+    2-limb exponent widths.  Returns ``{"calls", "seconds"}``.
+    """
+    t0 = time.perf_counter()
+    calls = 0
+    for shape in shapes:
+        if isinstance(shape, (tuple, list)):
+            B, M, N = (int(s) for s in shape)
+            if min(B, M, N) <= 0:
+                continue
+            ones = CipherTensor.from_ints(bk, [1] * N)
+            for val in (3, 1 << 17):   # 1- and 2-limb exponent widths
+                matvec_many(bk, np.full((B, M, N), val, dtype=object),
+                            [ones] * B)
+                calls += 1
+        else:
+            B = int(shape)
+            if B <= 0:
+                continue
+            _enc_ct_impl(bk, [0] * B, [1] * B)
+            ones = CipherTensor.from_ints(bk, [1] * B)
+            dec_vec(bk, ones)
+            add_ct(bk, ones, ones)
+            calls += 3
+    if bk.device.type == "cuda":
+        torch.cuda.synchronize(bk.device)
+    out = {"calls": calls, "seconds": time.perf_counter() - t0}
+    from ..obs.metrics import record_profile
+    record_profile("warmup", **out)
+    return out

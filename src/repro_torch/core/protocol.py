@@ -1,0 +1,456 @@
+"""3P-ADMM-PC2 — the paper's three-phase master/edge privacy protocol.
+
+Port of the synchronous driver of ``repro.core.protocol`` (Algorithm 1):
+
+  * Initialization phase   — master splits A by columns, ships
+    alpha_k = {A_k^T A_k, rho}; edge k returns B_k = (A_k^T A_k + rho I)^{-1}
+    and keeps the quantized Gamma_2(B_k rho).
+  * Data-security-sharing  — master quantizes+encrypts B_k A_k^T y (eq. 11);
+    edge k stores the ciphertext alpha-hat.
+  * Parallel privacy-computing — per iteration the master encrypts
+    Gamma_2(u1_k), Gamma_2(u2_k); edge k evaluates eq. (13) entirely in
+    ciphertext (one ⊕, one ⊗-matvec, one ⊕); master decrypts, dequantizes
+    by Theorem 1 and runs the workload's plaintext global update.
+
+Cipher backends: ``plain`` (the exact integer chain, no encryption) and
+``gold`` (Python-int Paillier whose batches of >= 8 elements run on the
+limb kernels through ``core.paillier_batch``, ciphertexts resident on the
+device).  The big-integer work runs on ``device`` (default the card);
+plaintext float64 math stays on the host, as in the reference.
+
+Not ported yet, each raising ``NotImplementedError`` with the slice that
+brings it: the ``vec`` cipher, the runtime's ``deadline``/``auto``
+dispatch, churn schedules and the Algorithm-3 collaborative mode.
+"""
+from __future__ import annotations
+
+import dataclasses
+import random
+import time
+from collections import defaultdict
+from typing import Callable
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from .. import workloads as workloads_mod
+from ..obs import health as health_mod
+from ..obs import metrics as obs_metrics
+from . import paillier as gold
+from . import paillier_batch as pb
+from .cipher_tensor import CipherTensor
+from .quantization import (QuantSpec, gamma1, gamma2, gamma1_saturation,
+                           gamma2_saturation, dequantize_theorem1)
+
+
+# ---------------------------------------------------------------------------
+# Cipher backends
+# ---------------------------------------------------------------------------
+
+class PlainBox:
+    """Exact plaintext-integer simulation of the homomorphic ring ops;
+    bumps the same logical op counters as the encrypted box."""
+
+    name = "plain"
+
+    def __init__(self, spec: QuantSpec, n_dim: int, counter=None):
+        if not spec.int64_safe(n_dim):
+            self._dtype = object     # python-int fallback for huge Delta
+        else:
+            self._dtype = np.int64
+        self.counter = counter or OpCounter()
+
+    def encrypt(self, m: np.ndarray) -> np.ndarray:
+        m = np.asarray(m)
+        self.counter.bump("enc", m.size)
+        return m.astype(self._dtype)
+
+    def add(self, c1, c2):
+        self.counter.bump("mulmod", np.asarray(c1).size)
+        return c1 + c2
+
+    def matvec(self, K: np.ndarray, c):
+        M, N = K.shape
+        self.counter.bump("modexp", M * N)
+        self.counter.bump("mulmod", M * (N - 1))
+        return K.astype(self._dtype) @ c
+
+    def decrypt(self, c) -> np.ndarray:
+        self.counter.bump("dec", np.asarray(c).size)
+        return np.asarray(c)
+
+    def ct_bytes(self, n_el: int) -> int:
+        return 8 * n_el  # plaintext int64 wire size
+
+
+class GoldBox:
+    """Python-int Paillier with the batched CRT fast path on ``device``.
+
+    Batches of ``batch_min`` (default 8) or more elements run through
+    ``core.paillier_batch``: the ModExps of a whole enc/dec/matvec call are
+    kernel launches and the ciphertexts stay resident in limb form
+    (:class:`CipherTensor`) between ops.  ``batch=False`` (or ``crt=False``)
+    keeps the scalar loops, the bit-exactness reference.  Ciphertext values
+    are identical either way (same rng stream).
+    """
+
+    name = "gold"
+
+    def __init__(self, key: gold.PaillierKey, rng: random.Random,
+                 crt: bool = True, counter=None, batch: bool = True,
+                 batch_min: int | None = None, device=None):
+        self.key = key
+        self.rng = rng
+        self.crt = crt
+        self.counter = counter or OpCounter()
+        self.batch = batch
+        self.batch_min = pb.BATCH_MIN if batch_min is None else batch_min
+        self.device = resolve_device(device)
+        self._bk: pb.BatchKey | None = None
+
+    def batch_key(self) -> pb.BatchKey:
+        if self._bk is None:
+            self._bk = pb.make_batch_key(self.key, self.device)
+        return self._bk
+
+    def encrypt(self, m: np.ndarray):
+        flat = np.asarray(m).reshape(-1)
+        self.counter.bump("enc", flat.size)
+        # batched enc has encrypt_crt's semantics (m wraps mod n), so it
+        # only stands in for the crt=True scalar loop
+        if self.batch and self.crt and flat.size >= self.batch_min \
+                and self.key.g == self.key.n + 1:
+            return pb.enc_ct(self.batch_key(), flat, self.rng)
+        enc = gold.encrypt_crt if self.crt else gold.encrypt
+        return [enc(self.key, int(x), gold.rand_r(self.key, self.rng))
+                for x in flat]
+
+    def add(self, c1, c2):
+        self.counter.bump("mulmod", len(c1))
+        if self.batch and self.crt and isinstance(c1, CipherTensor) \
+                and isinstance(c2, CipherTensor):
+            return pb.add_ct(self.batch_key(), c1, c2)
+        return [(a * b) % self.key.n2 for a, b in zip(c1, c2)]
+
+    def matvec(self, K: np.ndarray, c):
+        Km = np.asarray(K, dtype=object)
+        M, N = Km.shape
+        self.counter.bump("modexp", M * N)
+        self.counter.bump("mulmod", M * (N - 1))
+        if self.batch and self.crt and M * N >= self.batch_min:
+            return pb.matvec_vec(self.batch_key(), Km, c)
+        out = []
+        for i in range(M):
+            acc = 1
+            for j in range(N):
+                acc = (acc * pow(c[j], int(Km[i, j]), self.key.n2)) % self.key.n2
+            out.append(acc)
+        return out
+
+    def decrypt(self, c) -> np.ndarray:
+        self.counter.bump("dec", len(c))
+        if self.batch and self.crt and len(c) >= self.batch_min:
+            vals = pb.dec_vec(self.batch_key(), c)
+        else:
+            dec = gold.decrypt_crt if self.crt else gold.decrypt
+            vals = [dec(self.key, x) for x in c]
+        return np.array(vals, dtype=object)
+
+    def ct_bytes(self, n_el: int) -> int:
+        return (self.key.n2.bit_length() + 7) // 8 * n_el
+
+
+# canonical protocol phase names — the OpCounter/RunReport vocabulary
+PHASE_INIT = "init"
+PHASE_SHARE = "share"
+PHASE_ITERATE = "iterate"
+PHASES = (PHASE_INIT, PHASE_SHARE, PHASE_ITERATE)
+#: ops bumped before any driver set a phase land here
+PHASE_UNSET = "unphased"
+
+
+class OpCounter:
+    """Per-phase crypto-op accounting with a byte-stable ``as_dict``."""
+
+    def __init__(self):
+        self.counts: dict[str, dict[str, int]] = defaultdict(lambda: defaultdict(int))
+        self.phase: str | None = None
+
+    def bump(self, op: str, n: int = 1):
+        self.counts[self.phase if self.phase is not None
+                    else PHASE_UNSET][op] += n
+
+    def as_dict(self):
+        order = [ph for ph in PHASES if ph in self.counts]
+        order += sorted(ph for ph in self.counts if ph not in PHASES)
+        return {ph: dict(sorted(self.counts[ph].items())) for ph in order}
+
+
+# ---------------------------------------------------------------------------
+# Protocol configuration / result
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ProtocolConfig:
+    K: int = 3
+    rho: float = 1.0
+    lam: float = 1.0
+    iters: int = 50
+    spec: QuantSpec = QuantSpec()
+    workload: str = "lasso"            # repro_torch.workloads registry name
+    cipher: str = "plain"              # plain | gold
+    key_bits: int = 256
+    crt: bool = True
+    collaborative: bool = False        # Algorithm 3 (not ported yet)
+    gold_batch: bool = True            # gold cipher: batched CRT fast path
+    y_scale: str = "consistent"
+    seed: int = 0
+    deadline: float | None = None      # runtime slice (not ported yet)
+    latency_fn: Callable[[int, int], float] | None = None
+    churn: object | None = None        # churn slice (not ported yet)
+    recycle: bool = False              # recycled-update mode
+    recycle_tol: int = 0               # quantized-int reuse tolerance
+    device: str = "cuda"               # where the big-integer work runs
+
+
+@dataclasses.dataclass
+class ProtocolResult:
+    x: np.ndarray
+    history: np.ndarray
+    stats: dict
+    stale_events: int
+
+
+# ---------------------------------------------------------------------------
+# Edge node — owns only what Remark 4 allows it to see
+# ---------------------------------------------------------------------------
+
+class EdgeNode:
+    def __init__(self, k: int, spec: QuantSpec):
+        self.k = k
+        self.spec = spec
+        self.Gb = None          # Gamma_2(B_k rho) integer matrix
+        self.alpha_hat = None   # ciphertext of Gamma_1(B_k A_k^T y)
+
+    def init_phase(self, Qk: np.ndarray, mu: float,
+                   scale: float | None = None) -> np.ndarray:
+        """B_k = (Q_k + mu I)^{-1}; keeps Gamma_2(scale * B_k)."""
+        Nk = Qk.shape[0]
+        scale = mu if scale is None else scale
+        Bk = np.linalg.inv(Qk + mu * np.eye(Nk))
+        self.Gb = np.asarray(gamma2(Bk * scale, self.spec))
+        return Bk
+
+    def store_shared(self, alpha_hat):
+        self.alpha_hat = alpha_hat
+
+    def private_step(self, z_hat, v_hat, box) -> object:
+        s = box.add(z_hat, v_hat)            # z-hat ⊕ (-v-hat)
+        t = box.matvec(self.Gb, s)           # Gamma_2(B-bar) ⊗ ...
+        return box.add(self.alpha_hat, t)    # alpha-hat ⊕ ...
+
+
+# ---------------------------------------------------------------------------
+# Protocol driver (master node logic)
+# ---------------------------------------------------------------------------
+
+def check_plaintext_fits(key: gold.PaillierKey, spec: QuantSpec,
+                         n_dim: int) -> None:
+    """Raise unless the Theorem-1 integer chain stays below n (Remark 2)."""
+    need = spec.plaintext_bits(n_dim)
+    if need >= key.n.bit_length():
+        raise ValueError(
+            f"plaintext chain needs {need} bits but n has "
+            f"{key.n.bit_length()}; raise key_bits or lower Delta")
+
+
+def make_box(cfg: ProtocolConfig, n_dim: int, rng: random.Random,
+             counter: "OpCounter", device=None):
+    """Key material + cipher box for ``cfg.cipher``; returns ``(box, key)``."""
+    if cfg.cipher == "plain":
+        return PlainBox(cfg.spec, n_dim, counter=counter), None
+    if cfg.cipher == "vec":
+        raise NotImplementedError(
+            "cipher='vec' arrives with a later slice of the port "
+            "(paillier_vec's in-graph arm); use cipher='gold'")
+    if cfg.cipher != "gold":
+        raise ValueError(cfg.cipher)
+    key = gold.keygen(cfg.key_bits, rng, g=None)
+    check_plaintext_fits(key, cfg.spec, n_dim)
+    return GoldBox(key, rng, crt=cfg.crt, counter=counter,
+                   batch=cfg.gold_batch, device=device), key
+
+
+def resolve_workload(cfg: ProtocolConfig,
+                     workload: "workloads_mod.Workload | None" = None
+                     ) -> "workloads_mod.Workload":
+    """An explicit instance wins, else the registry entry ``cfg.workload``."""
+    if workload is not None:
+        return workload
+    return workloads_mod.get(cfg.workload, rho=cfg.rho, lam=cfg.lam)
+
+
+def _check_supported(cfg: ProtocolConfig, wl) -> None:
+    if cfg.deadline is not None or cfg.cipher == "auto":
+        raise NotImplementedError(
+            "deadline mode and cipher='auto' live in the event-driven "
+            "runtime, which arrives with the runtime slice of the port")
+    if cfg.churn is not None:
+        raise NotImplementedError(
+            "churn schedules arrive with the protocol-surface slice of the "
+            "port (core/churn.py)")
+    if cfg.collaborative:
+        raise NotImplementedError(
+            "the Algorithm-3 collaborative mode arrives with the "
+            "protocol-surface slice of the port")
+    if wl.uses_secure_agg:
+        raise NotImplementedError(
+            "secure aggregation arrives with the protocol-surface slice "
+            "of the port")
+
+
+def run_protocol(A: np.ndarray, y: np.ndarray, cfg: ProtocolConfig,
+                 workload: "workloads_mod.Workload | None" = None,
+                 health=False, device=None) -> ProtocolResult:
+    """Run 3P-ADMM-PC2 end to end; master-node state lives in this frame.
+
+    ``device`` (default ``cfg.device``, the card) is where the gold box's
+    batched big-integer work runs; ``"cuda"`` without a card raises.  The
+    encrypted chain per edge per round is enc(Γ₂ u1) ⊕ enc(Γ₂ u2), ⊗ by the
+    edge's Γ₂(C_k), ⊕ the stored Γ₁(u3_k).  ``stats["seconds"]`` (outside
+    the RunReport core) holds the wall seconds per phase and per round.
+    """
+    dev = resolve_device(cfg.device if device is None else device)
+    wl = resolve_workload(cfg, workload)
+    _check_supported(cfg, wl)
+    monitor = health_mod.as_monitor(health)
+    rng = random.Random(cfg.seed)
+    K = cfg.K
+    N_state, Nk = wl.dims(A, K)
+    spec = cfg.spec
+    clock = _PhaseClock(dev)
+
+    counter = OpCounter()
+    box, key = make_box(cfg, Nk, rng, counter, device=dev)
+    traffic = defaultdict(int)
+
+    # --- Initialization phase -------------------------------------------
+    counter.phase = PHASE_INIT
+    ys = y / K if cfg.y_scale == "consistent" else y
+    st = wl.init_state(np.asarray(A, np.float64),
+                       np.asarray(y, np.float64), ys, K,
+                       y_scale=cfg.y_scale)
+    edges = [EdgeNode(k, spec) for k in range(K)]
+    C_rowsums, Bks, u3s = [], [], []
+    for k, edge in enumerate(edges):
+        Qk, mu, scale = wl.edge_setup(st, k)
+        traffic["master->edge"] += Qk.nbytes
+        Bk = edge.init_phase(Qk, mu, scale)
+        traffic["edge->master"] += Bk.nbytes
+        C_rowsums.append((Bk * scale) @ np.ones(Nk))
+        Bks.append(Bk)
+        u3s.append(wl.share_vector(st, k, Bk))
+    clock.lap(PHASE_INIT)
+
+    # --- Data security sharing phase -------------------------------------
+    counter.phase = PHASE_SHARE
+    for k, edge in enumerate(edges):
+        q_alpha = np.asarray(gamma1(u3s[k], spec))
+        if monitor.enabled:
+            monitor.observe_quant(-1, *gamma1_saturation(q_alpha, spec))
+        c_alpha = box.encrypt(q_alpha)
+        traffic["master->edge"] += box.ct_bytes(Nk)
+        edge.store_shared(c_alpha)
+    clock.lap(PHASE_SHARE)
+
+    # --- Parallel privacy-computing phase ---------------------------------
+    counter.phase = PHASE_ITERATE
+    history = np.zeros((cfg.iters, N_state))
+    reshare_events = 0
+    # recycled-update cache: the quantized (u1, u2) pair of each edge's
+    # last encrypted round and the decrypted chain it produced
+    last_q: list = [None] * K
+    last_R: list = [None] * K
+    recycled = 0
+
+    for t in range(cfg.iters):
+        if wl.streaming:
+            for k in wl.reshare(st, t):
+                u3s[k] = wl.share_vector(st, k, Bks[k])
+                c_alpha = box.encrypt(np.asarray(gamma1(u3s[k], spec)))
+                traffic["master->edge"] += box.ct_bytes(Nk)
+                edges[k].store_shared(c_alpha)
+                reshare_events += 1
+                last_q[k] = last_R[k] = None
+        x_new = np.zeros(N_state)
+        for k, edge in enumerate(edges):
+            sl = slice(k * Nk, (k + 1) * Nk)
+            u1, u2 = wl.iter_inputs(st, k)
+            qz = np.asarray(gamma2(u1, spec))
+            qv = np.asarray(gamma2(u2, spec))
+            if monitor.enabled:
+                cz_n, tz_n = gamma2_saturation(qz, spec)
+                cv_n, tv_n = gamma2_saturation(qv, spec)
+                monitor.observe_quant(t, cz_n + cv_n, tz_n + tv_n)
+            w_sum = float(np.sum(u1 + u2))
+            if cfg.recycle and last_q[k] is not None \
+                    and int(np.max(np.abs(qz - last_q[k][0]))) \
+                    <= cfg.recycle_tol \
+                    and int(np.max(np.abs(qv - last_q[k][1]))) \
+                    <= cfg.recycle_tol:
+                # recycled update (Zhang 1910.04581): the quantized inputs
+                # match the edge's last encrypted round, so its chain
+                # would decrypt to the cached R — skip enc/step/dec
+                counter.bump("recycled", Nk)
+                recycled += 1
+                R = last_R[k]
+            else:
+                cz = box.encrypt(qz)
+                cv = box.encrypt(qv)
+                traffic["master->edge"] += 2 * box.ct_bytes(Nk)
+                x_hat = edge.private_step(cz, cv, box)
+                traffic["edge->master"] += box.ct_bytes(Nk)
+                R = box.decrypt(x_hat).astype(np.float64)
+                if cfg.recycle:
+                    last_q[k] = (qz, qv)
+                    last_R[k] = R
+            x_new[sl] = np.asarray(dequantize_theorem1(
+                R, C_rowsums[k], w_sum, Nk, spec))
+        if monitor.enabled:
+            monitor.observe_round(t, float(np.mean((x_new - st.x_prev) ** 2)))
+        # master updates (10b)/(10c) with the (t-1) iterate — Jacobi order
+        wl.global_update(st, x_new)
+        history[t] = x_new
+        clock.lap(PHASE_ITERATE)
+
+    stats = obs_metrics.build_run_report(
+        driver="protocol", ops=counter.as_dict(), traffic=traffic,
+        key_bits=None if key is None else key.n.bit_length(),
+        cipher=cfg.cipher, workload=wl.name,
+        reshare_events=reshare_events, history=history,
+        churn={"recycled": recycled})
+    if monitor.enabled:
+        stats["health"] = monitor.health_section()
+    stats["seconds"] = clock.seconds
+    return ProtocolResult(x=st.x_prev, history=history, stats=stats,
+                          stale_events=0)
+
+
+class _PhaseClock:
+    """Wall seconds per protocol phase, and per round of the iterate phase
+    (device work is synchronized at each lap)."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.seconds: dict = {"rounds": []}
+        self._t = time.perf_counter()
+
+    def lap(self, phase: str) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        dt, self._t = now - self._t, now
+        self.seconds[phase] = self.seconds.get(phase, 0.0) + dt
+        if phase == PHASE_ITERATE:
+            self.seconds["rounds"].append(dt)

@@ -1,0 +1,90 @@
+"""Quantization Gamma_1 / Gamma_2 and Theorem-1 dequantization (paper §III-A).
+
+Port of ``repro.core.quantization``: the same float64 formulas in eager
+torch on the host (the reference relied on JAX x64; here the dtype is
+explicit).  Results go straight to the host protocol loop, so every
+function returns numpy.  Eager torch float64 reproduces the reference's
+jnp results bit for bit on these elementwise formulas.
+
+    Gamma_2(u) = round( Delta   (u - zmin) / (zmax - zmin)   )   in {0..Delta}
+    Gamma_1(u) = round( Delta^2 (u - zmin) / (zmax - zmin)^2 )   in {0..Delta^2/s}
+
+and the exact N-dimensional Theorem-1 correction
+
+    u3 + B(u1+u2) = R s^2/Delta^2
+                    + zmin * (1 + 2 * B@1 + sum(u1+u2)) - 2 N zmin^2 .
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+DEFAULT_DELTA = 1.0e6
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantSpec:
+    """Protocol-level quantization parameters (shared by master and edges)."""
+    delta: float = DEFAULT_DELTA
+    zmin: float = -16.0
+    zmax: float = 16.0
+
+    @property
+    def span(self) -> float:
+        return self.zmax - self.zmin
+
+    def int64_safe(self, n_dim: int) -> bool:
+        """True if the Theorem-1 integer chain fits int64 for N=n_dim."""
+        return 2.0 * n_dim * self.delta ** 2 < 2.0 ** 62
+
+    def plaintext_bits(self, n_dim: int) -> int:
+        """Upper bound on the homomorphic-result bit length (Remark 2)."""
+        return int(np.ceil(np.log2(2.0 * n_dim * self.delta ** 2 + 1)))
+
+
+def _f64(u) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(u, dtype=np.float64))
+
+
+def gamma2(u, spec: QuantSpec) -> np.ndarray:
+    """Gamma_2: reals -> {0..Delta} (eq. 14b-d), int64."""
+    q = torch.round(spec.delta * (_f64(u) - spec.zmin) / spec.span)
+    return q.to(torch.int64).numpy()
+
+
+def gamma1(u, spec: QuantSpec) -> np.ndarray:
+    """Gamma_1: reals -> {0..Delta^2/s} (eq. 14a), int64."""
+    q = torch.round(spec.delta ** 2 * (_f64(u) - spec.zmin) / spec.span ** 2)
+    return q.to(torch.int64).numpy()
+
+
+def dequantize_theorem1(R, B_row_sums, w_sum, n_dim: int,
+                        spec: QuantSpec) -> np.ndarray:
+    """Recover  u3 + B(u1+u2)  from the integer chain value R (Theorem 1).
+
+    ``B_row_sums``: real row sums B @ 1 (known to the master from init phase).
+    ``w_sum``: scalar sum of the real (u1 + u2) vector.
+    """
+    s = spec.span
+    return (_f64(R) * s ** 2 / spec.delta ** 2
+            + spec.zmin * (1.0 + 2.0 * _f64(B_row_sums) + w_sum)
+            - 2.0 * n_dim * spec.zmin ** 2).numpy()
+
+
+def gamma2_saturation(q, spec: QuantSpec) -> tuple[int, int]:
+    """``(clipped, total)``: entries of a Gamma_2 code vector outside the
+    code range ``[0, Delta]`` (the fixed clipping contract violated)."""
+    q = np.asarray(q)
+    clipped = int(np.count_nonzero((q < 0) | (q > spec.delta)))
+    return clipped, int(q.size)
+
+
+def gamma1_saturation(q, spec: QuantSpec) -> tuple[int, int]:
+    """Same counters for a Gamma_1 code vector, whose code range is
+    ``[0, Delta^2 / span]``."""
+    q = np.asarray(q)
+    hi = spec.delta ** 2 / spec.span
+    clipped = int(np.count_nonzero((q < 0) | (q > hi)))
+    return clipped, int(q.size)

@@ -1,0 +1,150 @@
+"""Build the CUDA limb kernels at first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
+plain C interface (``nvcc -gencode arch=compute_90a,code=sm_90a -O3
+-shared``), one ``nvcc`` per source, all started together.  Libraries are
+cached under ``build/repro_torch/`` at the repository root, named by a
+hash of the sources and flags, so a later process loads them without
+rebuilding and an edited source rebuilds.  Nothing here runs at import:
+this module imports on machines without a card or a CUDA toolkit.
+
+Launch counts: each kernel wrapper adds one to ``LAUNCHES[name]`` where it
+launches its kernel, and nowhere else.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+NVCC_TIMEOUT_S = 900
+#: widest modulus the kernels take, in 32-bit words (``MAXW`` in limbs.cuh)
+MAX_WORDS = 128
+
+_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+#: kernel name -> (exported C function, its argument types)
+KERNELS = {
+    "mulmod": ("mulmod_launch", (_P, _P, _P, _I, _I, _P, _P, _I, _P)),
+    "modexp": ("modexp_launch",
+               (_P, _P, _P, _I, _I, _I, _P, _P, _P, _U, _I, _I, _I, _P)),
+    "modexp_fixed": ("modexp_fixed_launch",
+                     (_P, _P, _I, _I, _P, _I, _P, _P, _P, _U, _I, _I, _P)),
+}
+
+#: launches per kernel, bumped by the wrappers; reset with reset_launches()
+LAUNCHES = dict.fromkeys(KERNELS, 0)
+
+_FUNCS: dict = {}
+_LOCK = threading.Lock()
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    return str(Path(home) / "bin" / "nvcc")
+
+
+def library_path(name: str) -> Path:
+    """Cache path of kernel ``name``: a hash of the flags and sources
+    (``-Xptxas -v`` changes only the compiler's report, not the code)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(ptxas_verbose: bool = False) -> dict[str, str]:
+    """Compile every kernel whose library is missing, in parallel.
+
+    Returns each compiled kernel's compiler output (with
+    ``ptxas_verbose``, the registers, stack and spills per kernel);
+    raises with the output of every ``nvcc`` that failed.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    for name in KERNELS:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        verbose = ("-Xptxas", "-v") if ptxas_verbose else ()
+        cmd = [nvcc, *NVCC_FLAGS, *verbose, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    logs, errors = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        try:
+            logs[name], _ = proc.communicate(timeout=NVCC_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            logs[name], _ = proc.communicate()
+        if proc.returncode == 0:
+            os.replace(tmp, out)
+        else:
+            errors.append(f"nvcc {name}.cu (exit {proc.returncode}):\n"
+                          f"{logs[name]}")
+    if errors:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
+    return logs
+
+
+def launcher(name: str):
+    """The C launch function of kernel ``name``, building it if needed."""
+    fn = _FUNCS.get(name)
+    if fn is not None:
+        return fn
+    with _LOCK:
+        if name not in _FUNCS:
+            t0 = time.perf_counter()
+            built = build_all()
+            from ..obs.metrics import record_profile
+            record_profile("kernel_build", kernels=sorted(built),
+                           seconds=time.perf_counter() - t0)
+            for kname, (sym, argtypes) in KERNELS.items():
+                fn = getattr(ctypes.CDLL(str(library_path(kname))), sym)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                _FUNCS[kname] = fn
+    return _FUNCS[name]
+
+
+def require_rows(name: str, x, rows: int, cols: int) -> None:
+    """Raise unless ``x`` is a CUDA tensor of shape (rows, cols): the
+    kernels index their operands from these sizes."""
+    if x.device.type != "cuda" or tuple(x.shape) != (rows, cols):
+        raise ValueError(f"{name}: expected a CUDA tensor of shape "
+                         f"({rows}, {cols}), got {tuple(x.shape)} on "
+                         f"{x.device}")
+
+
+def require_width(words: int) -> None:
+    if words > MAX_WORDS:
+        raise ValueError(f"modulus of {words} 32-bit words is wider than the "
+                         f"kernels' {MAX_WORDS} ({32 * MAX_WORDS} bits)")
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")

@@ -1,0 +1,144 @@
+"""Shared pieces of the limb kernels' plain PyTorch versions.
+
+The reference held big integers inside its kernels as radix-256 limbs
+because the TPU vector unit has no 64-bit integer path
+(``repro/kernels/common.py:3-9``).  That does not hold on Hopper: the
+CUDA kernels (``csrc/``) work on 32-bit words with 64-bit products, and
+the plain versions here work on the public radix-2^16 limbs with int64
+accumulation (``core/bigint.py``).  Every function computes canonical
+residues, so all of them agree with the reference's outputs exactly.
+
+The ladders mirror the reference's schedules (``common.modexp2d``,
+``modexp2d_win4``, ``montgomery.modexp2d_mont_fixed``) over any modular
+multiply ``mul(a, b)``; the plain versions pick Barrett or Montgomery.
+They are the CPU path and the on-card yardstick of the kernels, not the
+constant-time artifact: the window select here indexes the table, where
+the CUDA ``modexp`` kernel selects by an oblivious masked sum.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Sequence
+
+import torch
+
+from ..core import bigint as bi
+
+MulFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceModulus:
+    """One modulus's material on one device, int32 radix-2^16 limbs.
+
+    ``L16`` limbs hold m; the CUDA kernels work on ``L32 = ceil(L16/2)``
+    32-bit words and the padded width ``W = 2 L32`` limbs.
+
+    * ``m16`` (L16,), ``mu16`` (L16+1,) = floor(2^{32 L16} / m): Barrett
+      of the plain versions (the reference's ``ModulusPack.m16/mu16``);
+    * ``mw`` (W,) = m, ``muw`` (W+2,) = floor(2^{64 L32} / m): Barrett
+      inside the kernels;
+    * ``minv`` (W,) = -m^{-1} mod R, ``r1`` = R mod m, ``r2`` = R^2 mod m
+      (W,) with R = 2^{32 L32}, and ``mp`` = -m^{-1} mod 2^32: Montgomery,
+      ``None`` for even moduli.
+    """
+    L16: int
+    L32: int
+    m16: torch.Tensor
+    mu16: torch.Tensor
+    mw: torch.Tensor
+    muw: torch.Tensor
+    mp: int | None
+    minv: torch.Tensor | None
+    r1: torch.Tensor | None
+    r2: torch.Tensor | None
+
+    @property
+    def W(self) -> int:
+        return 2 * self.L32
+
+
+def one_like(x: torch.Tensor) -> torch.Tensor:
+    """The integer 1 in ``x``'s limb layout."""
+    one = torch.zeros_like(x)
+    one[..., 0] = 1
+    return one
+
+
+def exp_bit(exp64: torch.Tensor, j: int) -> torch.Tensor:
+    """Bit j of each row's exponent, (B, Le) radix-2^16 -> (B,)."""
+    return (exp64[:, j // bi.LIMB_BITS] >> (j % bi.LIMB_BITS)) & 1
+
+
+def exp_window(exp64: torch.Tensor, j: int) -> torch.Tensor:
+    """4-bit window j (bits 4j..4j+3) of each row's exponent -> (B,)."""
+    return (exp64[:, (4 * j) // bi.LIMB_BITS] >> ((4 * j) % bi.LIMB_BITS)) & 0xF
+
+
+def power_table(mul: MulFn, one: torch.Tensor,
+                base: torch.Tensor) -> torch.Tensor:
+    """(16, B, L): base^t for t = 0..15 (14 sequential products)."""
+    tab = [one, base]
+    for _ in range(2, 16):
+        tab.append(mul(tab[-1], base))
+    return torch.stack(tab)
+
+
+def ladder_binary(mul: MulFn, one: torch.Tensor, base: torch.Tensor,
+                  exp: torch.Tensor) -> torch.Tensor:
+    """Right-to-left square-and-multiply over every exponent bit
+    (``common.modexp2d``'s schedule: 2 products per bit)."""
+    exp64 = exp.to(torch.int64)
+    res, b = one, base
+    for j in range(exp.shape[1] * bi.LIMB_BITS):
+        bit = exp_bit(exp64, j)[:, None]
+        res = torch.where(bit == 1, mul(res, b), res)
+        b = mul(b, b)
+    return res
+
+
+def ladder_win4(mul: MulFn, one: torch.Tensor, base: torch.Tensor,
+                exp: torch.Tensor) -> torch.Tensor:
+    """MSB-first 4-bit windows: 4 squarings and one table product per
+    window (``common.modexp2d_win4``'s schedule)."""
+    exp64 = exp.to(torch.int64)
+    table = power_table(mul, one, base)
+    rows = torch.arange(base.shape[0], device=base.device)
+    n_win = exp.shape[1] * bi.LIMB_BITS // 4
+    res = one
+    for w in range(n_win):
+        for _ in range(4):
+            res = mul(res, res)
+        res = mul(res, table[exp_window(exp64, n_win - 1 - w), rows])
+    return res
+
+
+def ladder_fixed(mul: MulFn, one: torch.Tensor, base: torch.Tensor,
+                 windows: Sequence[int]) -> torch.Tensor:
+    """One host-known exponent for the whole batch, as its MSB-first
+    4-bit windows; an empty schedule (e = 0) gives 1."""
+    if not windows:
+        return one
+    table = power_table(mul, one, base)
+    res = one
+    for win in windows:
+        for _ in range(4):
+            res = mul(res, res)
+        res = mul(res, table[win])
+    return res
+
+
+def barrett_mulmod(a: torch.Tensor, b: torch.Tensor,
+                   dm: DeviceModulus) -> torch.Tensor:
+    """int64 (a*b) mod m for any a, b < 2^{16 L16} (Barrett is exact for
+    a*b < B^{2 L16})."""
+    return bi._barrett(bi._mul(a, b), dm.m16, dm.mu16)
+
+
+def barrett_ladder(ladder, base: torch.Tensor, arg,
+                   dm: DeviceModulus) -> torch.Tensor:
+    """Run ``ladder`` over Barrett products (the base is reduced first);
+    (B, L16) -> (B, L16) int32."""
+    base_r = bi._barrett(base, dm.m16, dm.mu16)
+    return ladder(lambda a, b: barrett_mulmod(a, b, dm), one_like(base_r),
+                  base_r, arg).to(torch.int32)

@@ -1,0 +1,53 @@
+"""mulmod: (a * b) mod m over a batch — the CUDA kernel and its plain version.
+
+Port of ``repro.kernels.limb_mulmod.mulmod_pallas`` (Barrett).  The kernel
+is ``csrc/mulmod.cu``; :func:`mulmod_plain` computes the same canonical
+residues in plain PyTorch (radix-2^16 Barrett, ``core.bigint``).
+:func:`mulmod_limbs` picks by where the operands live: a CUDA tensor
+launches the kernel (or raises), a CPU tensor takes the plain version.
+
+Both are exact for any operands below 2^{16 L16}, not only reduced ones:
+``paillier_vec._reduce_into`` multiplies full-width chunks by 1.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import build
+from . import common as cm
+
+
+def mulmod_plain(a: torch.Tensor, b: torch.Tensor,
+                 dm: cm.DeviceModulus) -> torch.Tensor:
+    """(B, L16) x (B, L16) -> (B, L16) int32: (a*b) mod m, plain PyTorch."""
+    return cm.barrett_mulmod(a, b, dm).to(torch.int32)
+
+
+def mulmod_cuda(a: torch.Tensor, b: torch.Tensor,
+                dm: cm.DeviceModulus) -> torch.Tensor:
+    """The ``csrc/mulmod.cu`` kernel on CUDA tensors (same contract)."""
+    a = a.to(torch.int32).contiguous()
+    b = b.to(torch.int32).contiguous()
+    B = a.shape[0]
+    build.require_rows("mulmod a", a, B, dm.L16)
+    build.require_rows("mulmod b", b, B, dm.L16)
+    out = torch.empty((B, dm.L16), dtype=torch.int32, device=a.device)
+    if B == 0:
+        return out
+    build.require_width(dm.L32)
+    launch = build.launcher("mulmod")
+    with torch.cuda.device(a.device):
+        rc = launch(a.data_ptr(), b.data_ptr(), out.data_ptr(), B, dm.L16,
+                    dm.mw.data_ptr(), dm.muw.data_ptr(), dm.L32,
+                    torch.cuda.current_stream(a.device).cuda_stream)
+    build.check(rc, "mulmod")
+    build.LAUNCHES["mulmod"] += 1
+    return out
+
+
+def mulmod_limbs(a: torch.Tensor, b: torch.Tensor,
+                 dm: cm.DeviceModulus) -> torch.Tensor:
+    """Kernel on a CUDA tensor, plain version on a CPU tensor."""
+    if a.device.type == "cuda":
+        return mulmod_cuda(a, b, dm)
+    return mulmod_plain(a, b, dm)

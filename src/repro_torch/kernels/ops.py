@@ -1,0 +1,232 @@
+"""Public wrappers over the limb kernels.
+
+Port of ``repro.kernels.ops`` (``ModulusPack`` and the ``mulmod``,
+``modexp`` and ``modexp_fixed`` wrappers).  Callers hold big integers as
+radix-2^16 int32 limb tensors ``(B, L16)`` (``core/bigint.py``); the
+wrappers pack the modulus, check the operands and hand them to the
+kernel modules, which launch the CUDA kernel for a CUDA tensor and run
+the plain PyTorch version for a CPU tensor.  There is no backend knob.
+
+Reduction (``REPRO_REDUCE_IMPL``, read per call, the reference's meaning):
+``montgomery`` (default) runs the REDC ladders for ``modexp`` and
+``modexp_fixed`` on odd moduli (even moduli fall back to Barrett);
+``barrett`` runs Barrett throughout.  Standalone ``mulmod`` is always
+Barrett.  ``REPRO_MODEXP_METHOD`` (read at import, as in the reference)
+picks the per-element ladder: ``win4`` (default) or ``binary``.
+
+Operands are never cut to the modulus width: an operand wider than L16
+limbs raises.  (The reference cuts operands to the modulus' byte length,
+``ops.py:126-130``, which loses the top byte of a full-width operand when
+the modulus has an odd byte length.)
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..core import bigint as bi
+from . import common as cm
+from . import montgomery as mg
+from .limb_mulmod import mulmod_limbs
+from .modexp import METHODS, REDUCE_IMPLS, modexp_fixed_limbs, modexp_limbs
+
+
+@dataclasses.dataclass(frozen=True)
+class ModulusPack:
+    """Precomputed modulus material.
+
+    The reference's fields, array for array: ``m16``/``mu16`` (radix
+    2^16 Barrett), ``m8``/``mu8`` and the radix-256 Montgomery constants
+    ``mp8``/``r1_8``/``r2_8`` (``None`` for even moduli).  The port's own:
+    ``L32`` 32-bit words, ``muw`` = floor(2^{64 L32}/m), and with
+    R = 2^{32 L32}: ``mp32`` = -m^{-1} mod 2^32, ``minv`` = -m^{-1} mod R,
+    ``r1``/``r2`` = R, R^2 mod m (radix-2^16 limbs, width W = 2 L32).
+    """
+    m_int: int
+    L16: int
+    L8: int
+    m16: np.ndarray    # (L16,)
+    mu16: np.ndarray   # (L16+1,)  floor(2^{32 L16} / m)
+    m8: np.ndarray     # (1, L8)
+    mu8: np.ndarray    # (1, L8+1) floor(256^{2 L8} / m)
+    mp8: int | None
+    r1_8: np.ndarray | None    # (1, L8)
+    r2_8: np.ndarray | None    # (1, L8)
+    L32: int
+    muw: np.ndarray            # (W+2,)
+    mp32: int | None
+    minv: np.ndarray | None    # (W,)
+    r1: np.ndarray | None      # (W,)
+    r2: np.ndarray | None      # (W,)
+    _dev: dict = dataclasses.field(default_factory=dict, repr=False,
+                                   compare=False)
+
+    def on(self, device) -> cm.DeviceModulus:
+        """This modulus's tensors on ``device`` (built once per device)."""
+        dev = torch.device(device)
+        dm = self._dev.get(str(dev))
+        if dm is None:
+            W = 2 * self.L32
+
+            def t(arr):
+                return None if arr is None else torch.as_tensor(
+                    np.asarray(arr, np.int32), device=dev)
+
+            dm = self._dev[str(dev)] = cm.DeviceModulus(
+                L16=self.L16, L32=self.L32, m16=t(self.m16),
+                mu16=t(self.mu16), mw=t(bi.from_int(self.m_int, W)),
+                muw=t(self.muw), mp=self.mp32, minv=t(self.minv),
+                r1=t(self.r1), r2=t(self.r2))
+        return dm
+
+
+def pack_modulus(m: int) -> ModulusPack:
+    L8 = max(1, -(-m.bit_length() // 8))
+    L16 = max(1, -(-m.bit_length() // 16))
+    mu8 = (1 << (16 * L8)) // m  # 256^{2 L8} = 2^{16 L8}
+    mu8_limbs = np.zeros(L8 + 1, np.int32)
+    x = mu8
+    for i in range(L8 + 1):
+        mu8_limbs[i] = x & 0xFF
+        x >>= 8
+    assert x == 0
+    mont8 = mg.mont_constants(m, L8)
+    mp8 = r1_8 = r2_8 = None
+    if mont8 is not None:
+        mp8, r1, r2 = mont8
+        r1_8 = _to8(r1, L8)[None, :]
+        r2_8 = _to8(r2, L8)[None, :]
+    L32 = -(-L16 // 2)
+    W = 2 * L32
+    mont32 = mg.mont_constants(m, L32, limb_bits=32)
+    mp32 = minv = r1_w = r2_w = None
+    if mont32 is not None:
+        mp32, r1, r2 = mont32
+        R = 1 << (32 * L32)
+        minv = bi.from_int((-pow(m, -1, R)) % R, W)
+        r1_w, r2_w = bi.from_int(r1, W), bi.from_int(r2, W)
+    return ModulusPack(
+        m_int=m, L16=L16, L8=L8,
+        m16=bi.from_int(m, L16), mu16=bi.barrett_mu(m, L16),
+        m8=_to8(m, L8)[None, :], mu8=mu8_limbs[None, :],
+        mp8=mp8, r1_8=r1_8, r2_8=r2_8,
+        L32=L32, muw=bi.from_int((1 << (64 * L32)) // m, W + 2),
+        mp32=mp32, minv=minv, r1=r1_w, r2=r2_w,
+    )
+
+
+def _to8(x: int, n: int) -> np.ndarray:
+    out = np.zeros(n, np.int32)
+    for i in range(n):
+        out[i] = x & 0xFF
+        x >>= 8
+    if x:
+        raise ValueError("value does not fit limb count")
+    return out
+
+
+def active_reduce_impl() -> str:
+    """The session-wide reduction knob, validated (read per call)."""
+    impl = os.environ.get("REPRO_REDUCE_IMPL", "montgomery")
+    if impl not in REDUCE_IMPLS:
+        raise ValueError(f"REPRO_REDUCE_IMPL={impl!r}; expected one of "
+                         f"{REDUCE_IMPLS}")
+    return impl
+
+
+def _resolve_reduce(pack: ModulusPack, reduce_impl: str | None) -> str:
+    impl = reduce_impl or active_reduce_impl()
+    if impl not in REDUCE_IMPLS:
+        raise ValueError(f"unknown reduce_impl {impl!r}; expected one of "
+                         f"{REDUCE_IMPLS}")
+    if impl == "montgomery" and pack.mp32 is None:
+        return "barrett"            # even modulus: REDC needs m odd
+    return impl
+
+
+def _operand(x, L16: int, device) -> torch.Tensor:
+    """A (B, <=L16) limb array as a tensor of exactly L16 limbs; numpy
+    input goes to ``device`` (default cuda), tensors stay where they are."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(np.asarray(x), device=resolve_device(device))
+    if x.ndim != 2:
+        raise ValueError(f"expected a (B, L) limb array, got shape "
+                         f"{tuple(x.shape)}")
+    if x.shape[1] > L16:
+        raise ValueError(f"operand has {x.shape[1]} limbs, wider than the "
+                         f"modulus' {L16}; operands are never cut")
+    return bi.fit(x, L16)
+
+
+def _same_device(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    if x.device != like.device:
+        raise ValueError(f"operands on {x.device} and {like.device}")
+    return x
+
+
+def mulmod(a16, b16, pack: ModulusPack, device=None) -> torch.Tensor:
+    """(B, L16) x (B, L16) -> (B, L16): (a*b) mod m, exact for any
+    operands below 2^{16 L16}."""
+    a = _operand(a16, pack.L16, device)
+    b = _same_device(_operand(b16, pack.L16, a.device), a)
+    if a.shape[0] == 0:
+        return torch.zeros((0, pack.L16), dtype=torch.int32, device=a.device)
+    return mulmod_limbs(a, b.expand_as(a), pack.on(a.device))
+
+
+MODEXP_METHOD = os.environ.get("REPRO_MODEXP_METHOD", "win4")
+
+
+def _validate_method(method: str, exp_bits: int) -> None:
+    if method not in METHODS:
+        raise ValueError(f"unknown modexp method {method!r}; expected one "
+                         f"of {METHODS}")
+    if method == "win4" and exp_bits % 4 != 0:
+        raise ValueError(
+            f"win4 modexp requires an exponent bit-width that is a "
+            f"multiple of 4, got {exp_bits} bits; pad the exponent limbs "
+            f"or use method='binary'")
+
+
+def modexp(base16, exp16, pack: ModulusPack, device=None,
+           method: str | None = None,
+           reduce_impl: str | None = None) -> torch.Tensor:
+    """base^exp mod m over a batch; per-element exponents ``(B, Le16)``.
+
+    ``method``: "binary" (the paper's Algorithm-2 ladder) or "win4"
+    (4-bit fixed window; default).  ``reduce_impl`` overrides
+    ``REPRO_REDUCE_IMPL``.
+    """
+    method = method or MODEXP_METHOD
+    _validate_method(method, np.shape(exp16)[1] * bi.LIMB_BITS)
+    impl = _resolve_reduce(pack, reduce_impl)
+    base = _operand(base16, pack.L16, device)
+    if base.shape[0] == 0:
+        return torch.zeros((0, pack.L16), dtype=torch.int32,
+                           device=base.device)
+    exp = exp16 if isinstance(exp16, torch.Tensor) else torch.as_tensor(
+        np.asarray(exp16), device=base.device)
+    return modexp_limbs(base, _same_device(exp, base), pack.on(base.device),
+                        method, impl)
+
+
+def modexp_fixed(base16, e: int, pack: ModulusPack, device=None,
+                 reduce_impl: str | None = None) -> torch.Tensor:
+    """base^e mod m with ONE host-known exponent shared across the batch
+    (enc's ``r^n``, dec's ``c^lam`` halves).  The MSB-first 4-bit window
+    schedule (:func:`montgomery.exp_windows`) goes to the kernel at run
+    time, so no compile is keyed on ``e``."""
+    if e < 0:
+        raise ValueError("modexp_fixed requires a non-negative exponent; "
+                         "invert the base host-side first")
+    impl = _resolve_reduce(pack, reduce_impl)
+    base = _operand(base16, pack.L16, device)
+    if base.shape[0] == 0:
+        return torch.zeros((0, pack.L16), dtype=torch.int32,
+                           device=base.device)
+    return modexp_fixed_limbs(base, mg.exp_windows(e), pack.on(base.device),
+                              impl)

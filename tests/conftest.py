@@ -28,6 +28,11 @@ def run_subprocess(code: str, devices: int = 4, timeout: int = 600):
     return r.stdout
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips inside the test without one")
+
+
 @pytest.fixture
 def subproc():
     return run_subprocess

@@ -1,0 +1,295 @@
+"""repro_torch limb kernels (plain versions) vs the JAX reference and ints.
+
+On the CPU the port's ``ops.mulmod`` / ``ops.modexp`` / ``ops.modexp_fixed``
+run their kernels' plain PyTorch versions.  They must equal the
+reference's ``repro.kernels.ops`` (``backend="ref"``, one small case
+through the interpreted Pallas kernels) array for array, and Python's
+``%``/``pow``, over 128-1024-bit moduli (top-limb edge moduli and an even
+modulus, which falls back to Barrett), batch sizes {0, 1, 5, 130},
+exponent 0, all four modexp bodies (selected through the two
+environment knobs in both packages at once) and both modexp_fixed
+bodies.  Tolerance: none — these are exact integer computations.
+
+Also pinned: ``pack_modulus`` material equals the reference's, the
+error cases match, and on an odd-byte modulus with full-width operands
+the port equals Python ints (the reference cuts such operands to the
+modulus' byte length, ``repro/kernels/ops.py:126-130``, and answers
+wrongly there).
+"""
+import random
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import bigint as rbi
+from repro.kernels import ops as rops
+from repro_torch.convert import limbs_from_numpy
+from repro_torch.core import bigint as bi
+from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import limb_mulmod as lm
+from repro_torch.kernels import modexp as mx
+
+# small tensors: one intra-op thread avoids oversubscribing the cores that
+# the suite's parallel workers share
+torch.set_num_threads(1)
+
+BITS = (128, 256, 512, 1024)
+IMPLS = ("montgomery", "barrett")
+METHODS = ("win4", "binary")
+
+
+def _moduli(bits: int) -> dict:
+    """All-ones and minimal-top-limb edge moduli, a random odd and a
+    random even modulus of exactly ``bits`` bits."""
+    rng = random.Random(bits)
+    rand = rng.getrandbits(bits) | (1 << (bits - 1))
+    return {"ones": (1 << bits) - 1, "min_top": (1 << (bits - 1)) | 1,
+            "odd": rand | 1, "even": rand & ~1}
+
+
+def _rows(rng, B, L):
+    """Full-width operands (any value below 2^{16 L}, not reduced)."""
+    ints = [rng.getrandbits(16 * L) for _ in range(B)]
+    return ints, rbi.from_ints(ints, L)
+
+
+def _port(arr):
+    return limbs_from_numpy(arr, "cpu")
+
+
+def _knobs(monkeypatch, impl, method):
+    """Set REPRO_REDUCE_IMPL (read per call) and the value
+    REPRO_MODEXP_METHOD gives both packages' ops at import."""
+    monkeypatch.setenv("REPRO_REDUCE_IMPL", impl)
+    monkeypatch.setattr(rops, "MODEXP_METHOD", method)
+    monkeypatch.setattr(ops, "MODEXP_METHOD", method)
+
+
+@pytest.mark.parametrize("bits", BITS)
+def test_pack_modulus_matches_reference(bits):
+    for m in list(_moduli(bits).values()) + [(1 << 23) + 9]:
+        mine, ref = ops.pack_modulus(m), rops.pack_modulus(m)
+        assert (mine.m_int, mine.L16, mine.L8, mine.mp8) == \
+            (ref.m_int, ref.L16, ref.L8, ref.mp8)
+        for f in ("m16", "mu16", "m8", "mu8", "r1_8", "r2_8"):
+            a, b = getattr(mine, f), getattr(ref, f)
+            assert (a is None and b is None) or np.array_equal(a, b), (m, f)
+
+
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("B", (0, 1, 5, 130))
+def test_mulmod_equals_python_ints(bits, B):
+    for name, m in _moduli(bits).items():
+        pack = ops.pack_modulus(m)
+        rng = random.Random(bits * 1000 + B)
+        a, a16 = _rows(rng, B, pack.L16)
+        b, b16 = _rows(rng, B, pack.L16)
+        out = ops.mulmod(_port(a16), _port(b16), pack, device="cpu")
+        assert out.shape == (B, pack.L16) and out.dtype == torch.int32
+        assert bi.to_ints(out) == [(x * y) % m for x, y in zip(a, b)], name
+
+
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("method", METHODS)
+def test_modexp_equals_python_pow(monkeypatch, bits, impl, method):
+    _knobs(monkeypatch, impl, method)
+    for name, m in _moduli(bits).items():
+        pack = ops.pack_modulus(m)
+        rng = random.Random(bits)
+        base, b16 = _rows(rng, 5, pack.L16)
+        exps, e16 = _rows(rng, 5, 2)
+        exps[1], e16[1] = 0, 0
+        out = ops.modexp(_port(b16), _port(e16), pack)
+        assert bi.to_ints(out) == [pow(x, e, m) for x, e in
+                                   zip(base, exps)], name
+
+
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("impl", IMPLS)
+def test_modexp_fixed_equals_python_pow(monkeypatch, bits, impl):
+    monkeypatch.setenv("REPRO_REDUCE_IMPL", impl)
+    for name, m in _moduli(bits).items():
+        pack = ops.pack_modulus(m)
+        rng = random.Random(bits + 7)
+        base, b16 = _rows(rng, 5, pack.L16)
+        for e in (0, 1, 0x10, rng.getrandbits(min(bits, 160))):
+            out = ops.modexp_fixed(_port(b16), e, pack)
+            assert bi.to_ints(out) == [pow(x, e, m) for x in base], (name, e)
+
+
+ALL_BODIES = (("montgomery", "win4"), ("montgomery", "binary"),
+              ("barrett", "win4"), ("barrett", "binary"))
+
+
+@pytest.mark.parametrize("bits, kind, bodies", [
+    (128, "ones", ALL_BODIES), (1024, "odd", ALL_BODIES[:1]),
+    (256, "min_top", ALL_BODIES[:1]), (512, "odd", ALL_BODIES[:1]),
+    (256, "even", ALL_BODIES[2:3])])
+def test_plain_versions_equal_reference_ref_backend(monkeypatch, bits, kind,
+                                                    bodies):
+    """Bodies selected through the env knobs, array-equal to repro's ops
+    (every body at 128 bits, the defaults at the wider moduli, Barrett
+    on the even modulus; the Python-int tests above cover the rest)."""
+    m = _moduli(bits)[kind]
+    mine, ref = ops.pack_modulus(m), rops.pack_modulus(m)
+    rng = random.Random(bits ^ 0x55)
+    _, a16 = _rows(rng, 5, mine.L16)
+    _, b16 = _rows(rng, 5, mine.L16)
+    _, e16 = _rows(rng, 5, 2)
+    e16[0] = 0
+    want = rops.mulmod(jnp.asarray(a16), jnp.asarray(b16), ref,
+                       backend="ref")
+    assert np.array_equal(ops.mulmod(_port(a16), _port(b16), mine).numpy(),
+                          np.asarray(want))
+    e = rng.getrandbits(min(bits, 256))
+    for impl, method in bodies:
+        _knobs(monkeypatch, impl, method)
+        want = rops.modexp(jnp.asarray(a16), jnp.asarray(e16), ref,
+                           backend="ref")
+        got = ops.modexp(_port(a16), _port(e16), mine)
+        assert np.array_equal(got.numpy(), np.asarray(want)), (impl, method)
+        if method == "win4":          # both modexp_fixed bodies
+            want = rops.modexp_fixed(jnp.asarray(a16), e, ref, backend="ref")
+            got = ops.modexp_fixed(_port(a16), e, mine)
+            assert np.array_equal(got.numpy(), np.asarray(want)), impl
+
+
+@pytest.mark.parametrize("B", (0, 1, 130))
+def test_batch_sizes_equal_reference_and_ints(B):
+    """Default bodies at the batch edges: Python ints always, the
+    reference's ``ref`` backend at B = 0 and at a batch that is no
+    power of two (B = 130)."""
+    m = _moduli(128)["odd"]
+    mine, ref = ops.pack_modulus(m), rops.pack_modulus(m)
+    rng = random.Random(B)
+    a, a16 = _rows(rng, B, mine.L16)
+    e, e16 = _rows(rng, B, 1)
+    got = (ops.mulmod(_port(a16), _port(a16), mine),
+           ops.modexp(_port(a16), _port(e16), mine),
+           ops.modexp_fixed(_port(a16), m - 2, mine))
+    assert [bi.to_ints(g) for g in got] == [
+        [x * x % m for x in a], [pow(x, y, m) for x, y in zip(a, e)],
+        [pow(x, m - 2, m) for x in a]]
+    assert all(g.shape == (B, mine.L16) for g in got)
+    if B == 1:
+        return
+    want = (rops.mulmod(jnp.asarray(a16), jnp.asarray(a16), ref,
+                        backend="ref"),
+            rops.modexp(jnp.asarray(a16), jnp.asarray(e16), ref,
+                        backend="ref"),
+            rops.modexp_fixed(jnp.asarray(a16), m - 2, ref, backend="ref"))
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), np.asarray(w))
+
+
+def test_plain_versions_equal_interpreted_pallas():
+    """One small case through the reference's Pallas kernels (interpreted
+    on the CPU)."""
+    m = _moduli(128)["odd"]
+    mine, ref = ops.pack_modulus(m), rops.pack_modulus(m)
+    rng = random.Random(9)
+    _, a16 = _rows(rng, 3, mine.L16)
+    _, e16 = _rows(rng, 3, 1)
+    want = rops.mulmod(jnp.asarray(a16), jnp.asarray(a16), ref,
+                       backend="pallas")
+    assert np.array_equal(ops.mulmod(_port(a16), _port(a16), mine).numpy(),
+                          np.asarray(want))
+    want = rops.modexp(jnp.asarray(a16), jnp.asarray(e16), ref,
+                       backend="pallas")
+    assert np.array_equal(ops.modexp(_port(a16), _port(e16), mine).numpy(),
+                          np.asarray(want))
+
+
+def test_odd_byte_modulus_full_width_operands_equal_python_ints():
+    """m = 2^23 + 9 has 3 bytes (L16 = 2): a full-width 32-bit operand
+    keeps its top byte in the port (the reference's mulmod returns 12345
+    here, having cut a to 3 bytes)."""
+    m = (1 << 23) + 9
+    a = (1 << 31) + 12345
+    pack = ops.pack_modulus(m)
+    out = ops.mulmod(_port(rbi.from_ints([a], 2)), _port(rbi.from_ints([1], 2)),
+                     pack)
+    assert bi.to_ints(out) == [a % m] == [10041]
+    # the wide-input path the CRT reduction uses, on a key-like odd-byte
+    # modulus (p^2 of a key whose bits are not a multiple of 16)
+    rng = random.Random(23)
+    m = (rng.getrandbits(100) | (1 << 99) | 1) ** 2          # 199-200 bits
+    pack = ops.pack_modulus(m)
+    assert pack.L8 % 2 == 1
+    xs, x16 = _rows(rng, 7, pack.L16)
+    out = ops.mulmod(_port(x16), _port(rbi.from_ints([1] * 7, pack.L16)),
+                     pack)
+    assert bi.to_ints(out) == [x % m for x in xs]
+    e = rng.getrandbits(64)
+    assert bi.to_ints(ops.modexp_fixed(_port(x16), e, pack)) == \
+        [pow(x, e, m) for x in xs]
+
+
+def test_plain_dispatch_selects_each_body():
+    """``kernels.ref`` names each body's plain version, as the reference's
+    ``kernels.ref`` names its jnp oracle."""
+    m = _moduli(256)["odd"]
+    pack = ops.pack_modulus(m)
+    dm = pack.on("cpu")
+    rng = random.Random(4)
+    base, b16 = _rows(rng, 3, pack.L16)
+    exps, e16 = _rows(rng, 3, 1)
+    want = [pow(x, e, m) for x, e in zip(base, exps)]
+    for impl in IMPLS:
+        for method in METHODS:
+            out = ref.modexp_ref(_port(b16), _port(e16), dm, method, impl)
+            assert bi.to_ints(out) == want, (impl, method)
+    assert bi.to_ints(ref.mulmod_ref(_port(b16), _port(b16), dm)) == \
+        [x * x % m for x in base]
+    with pytest.raises(ValueError):
+        ref.modexp_ref(_port(b16), _port(e16), dm, method="ternary")
+    even = ops.pack_modulus(m - 1).on("cpu")
+    with pytest.raises(ValueError, match="odd"):
+        ref.modexp_ref(_port(b16), _port(e16), even, reduce_impl="montgomery")
+
+
+def test_error_cases_match_reference():
+    m = _moduli(128)["odd"]
+    mine, ref = ops.pack_modulus(m), rops.pack_modulus(m)
+    a = np.zeros((2, mine.L16), np.int32)
+    for bad in (dict(method="ternary"), dict(reduce_impl="redc")):
+        with pytest.raises(ValueError):
+            rops.modexp(jnp.asarray(a), jnp.asarray(a), ref, **bad)
+        with pytest.raises(ValueError):
+            ops.modexp(_port(a), _port(a), mine, **bad)
+    with pytest.raises(ValueError, match="non-negative"):
+        rops.modexp_fixed(jnp.asarray(a), -1, ref)
+    with pytest.raises(ValueError, match="non-negative"):
+        ops.modexp_fixed(_port(a), -1, mine)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        rops._validate_method("win4", 6)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        ops._validate_method("win4", 6)
+    with pytest.raises(ValueError, match="never cut"):
+        ops.mulmod(_port(np.zeros((2, mine.L16 + 1), np.int32)), _port(a),
+                   mine)
+
+
+def test_cpu_tensors_take_the_plain_version_and_cuda_raises_without_card():
+    m = _moduli(128)["odd"]
+    pack = ops.pack_modulus(m)
+    a = np.ones((4, pack.L16), np.int32)
+    before = dict(build.LAUNCHES)
+    ops.mulmod(_port(a), _port(a), pack)
+    ops.modexp(_port(a), _port(a[:, :1]), pack)
+    ops.modexp_fixed(_port(a), 65537, pack)
+    assert build.LAUNCHES == before            # no kernel on CPU tensors
+    # the kernel entry points take CUDA tensors only: no silent fallback
+    dm = pack.on("cpu")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        lm.mulmod_cuda(_port(a), _port(a), dm)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        mx.modexp_cuda(_port(a), _port(a[:, :1]), dm, "win4", "montgomery")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        mx.modexp_fixed_cuda(_port(a), (1, 2), dm, "montgomery")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            ops.mulmod(a, a, pack)             # numpy input defaults to cuda
