@@ -8,23 +8,33 @@ package, and:
 1. requires a CUDA card and prints its name and power limit;
 2. builds the three hand-written kernels from ``src/repro_torch/kernels/
    csrc`` (one ``nvcc`` per source, in parallel) and prints the build time
-   and each kernel's registers and stack;
-3. holds every kernel instantiation (mulmod; modexp's four bodies;
-   modexp_fixed's two) against its plain PyTorch version on the card and
-   against Python ints, at the main path's widths (2048-bit p^2/q^2,
-   4096-bit n^2), an odd-byte 1000-bit width with full-width operands,
-   and batches {0, 1, ragged}; then, at the main path's own (large)
-   batches, times each instantiation with CUDA events beside its plain
-   version on the same inputs and holds the two outputs against each
-   other and against Python ints on a sample;
+   and each instantiation's registers, stack frame and spills; the
+   cooperative (group-per-integer) instantiations must show no spills
+   and a stack frame under 256 bytes;
+3. holds every kernel body (mulmod; modexp's four bodies; modexp_fixed's
+   two) against its plain PyTorch version on the card and against Python
+   ints, at the main path's widths (2048-bit p^2/q^2, 4096-bit n^2), an
+   odd-byte 1000-bit width with full-width operands, and batches {0, 1,
+   ragged}; then, at the main path's own (large) batches, times each body
+   with CUDA events beside its plain version on the same inputs and holds
+   the two outputs against each other and against Python ints on a
+   sample; times the group-size candidates of the two cooperative bodies
+   on the same inputs and holds their outputs the same way, and times the
+   main path's two-half modexp_fixed launch (p^2 and q^2 rows in one
+   launch) against two launches;
 4. runs the main path — gold-cipher private LASSO at the paper's Fig. 6
    key and quantizer (2048-bit keys, Delta = 1e15, K = 3, rho = lam = 1)
    with the scale cut to N = 576, M = 64, 3 iterations — and the plain
    arm on the same instance; the histories must be equal bit for bit, a
    sample of the first round's ciphertexts must equal the scalar
-   ``encrypt_crt`` on a replayed rng, and every kernel must have been
-   launched during the gold run;
-5. prints the kernel table as one JSON line, then as its last line
+   ``encrypt_crt`` on a replayed rng, and every kernel body of the path
+   must have been launched during the gold run;
+5. splits one more main-path round by device time per kernel
+   (``torch.profiler``) and the device's idle share, with CUDA events
+   around each kernel wrapper giving each kernel's time by batch size;
+6. runs one round at N = 1,152 (Nk = 384 per edge) against its plain arm,
+   to show how a round scales with Nk;
+7. prints the kernel table as one JSON line, then as its last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -33,9 +43,11 @@ result.  Exact integer work: the tolerance of every comparison is zero.
 import json
 import os
 import random
+import re
 import subprocess
 import sys
 import time
+from collections import defaultdict
 
 import numpy as np
 import torch
@@ -46,6 +58,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 KEY_BITS, DELTA, K, RHO, LAM = 2048, 1e15, 3, 1.0, 1.0
 N, M, ITERS, SEED = 576, 64, 3, 0
 NK = N // K
+N_SCALED = 1152                 # one more round at Nk = 384
 
 # H100 SXM peaks (NVIDIA data sheet): HBM 3.35 TB/s; fp32 67 TFLOP/s
 # counts 2 flops per FMA on 128 FMA lanes per SM, and the 32-bit integer
@@ -56,11 +69,24 @@ NK = N // K
 HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 67e12 / 4
 
-REPLACES = {
-    "mulmod": "src/repro/kernels/limb_mulmod.py:41",
-    "modexp": "src/repro/kernels/modexp.py:85",
-    "modexp_fixed": "src/repro/kernels/modexp.py:133",
+CSRC = "src/repro_torch/kernels/csrc"
+# body -> (source, the TPU kernel body it replaces)
+BODY_SOURCES = {
+    "mulmod": ("mulmod.cu", "src/repro/kernels/limb_mulmod.py:32"),
+    "modexp[montgomery,win4]": ("modexp.cu", "src/repro/kernels/modexp.py:55"),
+    "modexp[montgomery,binary]": ("modexp.cu",
+                                  "src/repro/kernels/modexp.py:49"),
+    "modexp[barrett,win4]": ("modexp.cu", "src/repro/kernels/modexp.py:44"),
+    "modexp[barrett,binary]": ("modexp.cu", "src/repro/kernels/modexp.py:40"),
+    "modexp_fixed[montgomery]": ("modexp_fixed.cu",
+                                 "src/repro/kernels/modexp.py:62"),
+    "modexp_fixed[barrett]": ("modexp_fixed.cu",
+                              "src/repro/kernels/modexp.py:69"),
 }
+MAIN_PATH_BODIES = ("mulmod", "modexp[montgomery,win4]",
+                    "modexp_fixed[montgomery]")
+# cooperative instantiations must keep every row in registers
+MAX_COOP_STACK = 256
 
 
 def log(*parts):
@@ -77,6 +103,69 @@ def require_card():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     log(smi.stdout.strip())
+
+
+# ---------------------------------------------------------------------------
+# build report
+# ---------------------------------------------------------------------------
+
+def demangle(sym):
+    """``_Z18modexp_mont_kernelILi8ELi8ELb1EEv...`` ->
+    ``modexp_mont_kernel<8,8,true>`` (kernel templates over ints and
+    bools only)."""
+    m = re.match(r"_Z(\d+)", sym)
+    if not m:
+        return sym
+    n, start = int(m.group(1)), m.end()
+    name, rest = sym[start:start + n], sym[start + n:]
+    if not rest.startswith("I"):
+        return name
+    args = re.findall(r"L([ib])(\d+)E", rest[:rest.index("EEv") + 1])
+    vals = [v if t == "i" else ("true" if v == "1" else "false")
+            for t, v in args]
+    return f"{name}<{','.join(vals)}>"
+
+
+def ptxas_report(logs):
+    """Per instantiation: registers, stack frame and spill bytes."""
+    rows = {}
+    for text in logs.values():
+        cur = None
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                cur = demangle(m.group(1))
+                rows[cur] = {}
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m and cur:
+                rows[cur].update(stack=int(m.group(1)),
+                                 spill_stores=int(m.group(2)),
+                                 spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and cur:
+                rows[cur]["registers"] = int(m.group(1))
+    return rows
+
+
+def build_kernels(build):
+    t0 = time.perf_counter()
+    logs = build.build_all(ptxas_verbose=True, rebuild=True)
+    log(f"build: {time.perf_counter() - t0:.2f} s ({len(logs)} sources "
+        f"compiled)")
+    rows = ptxas_report(logs)
+    coop = 0
+    for name, r in sorted(rows.items()):
+        log(f"  ptxas {name}: {r.get('registers')} registers, "
+            f"{r.get('stack')} B stack, {r.get('spill_stores')} B spill "
+            f"stores, {r.get('spill_loads')} B spill loads")
+        if "_mont_kernel" in name:
+            coop += 1
+            assert r.get("spill_stores") == 0 and r.get("spill_loads") == 0 \
+                and r.get("stack", MAX_COOP_STACK) < MAX_COOP_STACK, \
+                f"{name} keeps rows in local memory: {r}"
+    assert coop > 0, "no cooperative instantiation in the ptxas report"
 
 
 # ---------------------------------------------------------------------------
@@ -153,8 +242,8 @@ def compare(bi, name, got, plain, want_ints):
 # ---------------------------------------------------------------------------
 
 def check_kernels(key, bi, ops, mg, lm, mx, dev):
-    """Every instantiation against its plain version and Python ints at
-    small batches; :func:`time_kernels` adds the main path's batches."""
+    """Every body against its plain version and Python ints at small
+    batches; :func:`time_kernels` adds the main path's batches."""
     rng = random.Random(SEED + 1)
     odd1000 = rng.getrandbits(1000) | (1 << 999) | 1   # 125 bytes: odd
     packs = {"n2": ops.pack_modulus(key.n2), "p2": ops.pack_modulus(key.p2),
@@ -210,12 +299,14 @@ def check_kernels(key, bi, ops, mg, lm, mx, dev):
     return packs
 
 
-def time_kernels(key, packs, bi, mg, lm, mx, dev):
-    """Each instantiation at the main path's shapes: timed beside its
-    plain version on the same inputs, and both outputs held against each
-    other (zero tolerance) and against Python ints on a sample."""
+def time_kernels(key, packs, bi, geometry, mg, lm, mx, dev):
+    """Each body at the main path's shapes: timed beside its plain
+    version on the same inputs, and both outputs held against each other
+    (zero tolerance) and against Python ints on a sample.  The group-size
+    candidates of the cooperative bodies run on the same inputs and are
+    held against the same plain output."""
     rng = random.Random(SEED + 2)
-    out = {}
+    out, sweep = {}, []
 
     def rows(B, L):
         ints = [rng.getrandbits(16 * L) for _ in range(B)]
@@ -229,8 +320,46 @@ def time_kernels(key, packs, bi, mg, lm, mx, dev):
         out[name] = dict(shape=shape, ms=ms, plain_ms=plain_ms,
                          max_abs_err=compare(bi, name, got, ref, want),
                          bound_ms=bnd, bound_by=by)
-        log(f"  {name} {shape}: {ms:.3f} ms (plain {plain_ms:.1f} ms), "
-            f"equal")
+        log(f"  {name} {shape}: {ms:.3f} ms (plain {plain_ms:.1f} ms, "
+            f"bound {bnd:.4f} ms), equal")
+        return ref
+
+    def candidates(name, launch, ref, want, reps, B, k):
+        """Every instantiated group size of ``name``'s kernel at B x k."""
+        kernel = name.split("[")[0]
+        for tpi in sorted({t for t, _ in geometry.SHAPES[kernel]}):
+            g = geometry.launch_geometry(name, B, k, tpi)
+            ms, got = time_ms(lambda: launch(tpi), reps)
+            compare(bi, f"{name} tpi={tpi}", got, ref, want)
+            sweep.append(dict(body=name, B=B, k=k, tpi=tpi, words=g.words,
+                              per_block=g.per_block, blocks=g.blocks,
+                              smem=g.smem, ms=ms,
+                              chosen=tpi == geometry.TPI[kernel]))
+            log(f"  {name} tpi={tpi} ({g.words} words per thread, "
+                f"{g.blocks} blocks of {g.threads}): {ms:.3f} ms, equal")
+
+    def time_pair(ref_p, bpt, win_p, dm_p, want_p):
+        """Both CRT halves of the main path's fixed exponentiation in one
+        launch (B = 2 Nk), against two launches of Nk on the same rows;
+        the q^2 half is held against the plain Barrett version."""
+        pq = packs["q2"]
+        dm_q = pq.on(dev)
+        bq, bqt = rows(NK, pq.L16)
+        e_q = key.lam % key.phi_q2
+        win_q = mg.exp_windows(e_q)
+        pair_ms, (xp, xq) = time_ms(lambda: mx.modexp_fixed_pair_cuda(
+            (bpt, bqt), (win_p, win_q), (dm_p, dm_q)), 10)
+        two_ms, _ = time_ms(lambda: (
+            mx.modexp_fixed_cuda(bpt, win_p, dm_p, "montgomery"),
+            mx.modexp_fixed_cuda(bqt, win_q, dm_q, "montgomery")), 10)
+        compare(bi, "modexp_fixed pair p^2", xp, ref_p, want_p)
+        compare(bi, "modexp_fixed pair q^2", xq,
+                mx.modexp_fixed_plain(bqt, win_q, dm_q, "barrett"),
+                [pow(x, e_q, pq.m_int) for x in bq[:4]])
+        log(f"  modexp_fixed[montgomery] both halves in one launch "
+            f"(B={2 * NK}): {pair_ms:.3f} ms; two launches of {NK}: "
+            f"{two_ms:.3f} ms; equal")
+        return dict(pair_ms=pair_ms, two_launches_ms=two_ms, B=2 * NK)
 
     # mulmod: the first level of the n^2 product tree, Nk^2 / 2 rows
     pack = packs["n2"]
@@ -251,14 +380,20 @@ def time_kernels(key, packs, bi, mg, lm, mx, dev):
     want = [pow(x, e, pack.m_int) for x, e in zip(base[:4], exps[:4])]
     for impl in ("montgomery", "barrett"):
         for method in ("win4", "binary"):
-            measure(f"modexp[{impl},{method}]",
-                    lambda: mx.modexp_cuda(bt, et, dm, method, impl),
-                    lambda: mx.modexp_plain(bt, et, dm, method, impl), 5,
-                    want, f"B={B} p^2 {pack.L32} words, 64-bit exps",
-                    word_products("modexp", pack.L32, exp_bits=64,
-                                  mont=impl == "montgomery",
-                                  win4=method == "win4"),
-                    B, B * (2 * pack.L16 + 4) * 4)
+            mont = impl == "montgomery"
+            name = f"modexp[{impl},{method}]"
+            ref = measure(
+                name, lambda: mx.modexp_cuda(bt, et, dm, method, impl),
+                lambda: mx.modexp_plain(bt, et, dm, method, impl),
+                10 if mont else 5, want,
+                f"B={B} p^2 {pack.L32} words, 64-bit exps",
+                word_products("modexp", pack.L32, exp_bits=64, mont=mont,
+                              win4=method == "win4"),
+                B, B * (2 * pack.L16 + 4) * 4)
+            if name == "modexp[montgomery,win4]":
+                candidates(name, lambda tpi: mx.modexp_cuda(
+                    bt, et, dm, "win4", "montgomery", tpi=tpi),
+                    ref, want, 10, B, pack.L32)
     # modexp_fixed: one encryption's r^n / decryption's c^lam half, Nk rows
     B = NK
     base, bt = rows(B, pack.L16)
@@ -266,15 +401,21 @@ def time_kernels(key, packs, bi, mg, lm, mx, dev):
     win = mg.exp_windows(e)
     want = [pow(x, e, pack.m_int) for x in base[:4]]
     for impl in ("montgomery", "barrett"):
-        measure(f"modexp_fixed[{impl}]",
-                lambda: mx.modexp_fixed_cuda(bt, win, dm, impl),
-                lambda: mx.modexp_fixed_plain(bt, win, dm, impl), 3, want,
-                f"B={B} p^2 {pack.L32} words, {len(win)} windows",
-                word_products("modexp_fixed", pack.L32,
-                              exp_bits=4 * len(win),
-                              mont=impl == "montgomery"),
-                B, 2 * B * pack.L16 * 4 + 4 * len(win))
-    return out
+        mont = impl == "montgomery"
+        name = f"modexp_fixed[{impl}]"
+        ref = measure(name, lambda: mx.modexp_fixed_cuda(bt, win, dm, impl),
+                      lambda: mx.modexp_fixed_plain(bt, win, dm, impl),
+                      10 if mont else 3, want,
+                      f"B={B} p^2 {pack.L32} words, {len(win)} windows",
+                      word_products("modexp_fixed", pack.L32,
+                                    exp_bits=4 * len(win), mont=mont),
+                      B, 2 * B * pack.L16 * 4 + 4 * len(win))
+        if mont:
+            candidates(name, lambda tpi: mx.modexp_fixed_cuda(
+                bt, win, dm, "montgomery", tpi=tpi), ref, want, 10, B,
+                pack.L32)
+            pair = time_pair(ref, bt, win, dm, want)
+    return out, sweep, pair
 
 
 # ---------------------------------------------------------------------------
@@ -297,13 +438,16 @@ class RecordingBox:
         return c
 
 
+def lasso_config(protocol, QuantSpec, cipher, iters):
+    spec = QuantSpec(delta=DELTA, zmin=-16.0, zmax=16.0)
+    return protocol.ProtocolConfig(K=K, rho=RHO, lam=LAM, iters=iters,
+                                   spec=spec, cipher=cipher,
+                                   key_bits=KEY_BITS, seed=SEED,
+                                   device="cuda")
+
+
 def run_main_path(protocol, gold, bi, build, QuantSpec, make_lasso):
     inst = make_lasso(M, N, sparsity=0.1, noise=0.01, seed=SEED)
-    spec = QuantSpec(delta=DELTA, zmin=-16.0, zmax=16.0)
-    cfg = protocol.ProtocolConfig(K=K, rho=RHO, lam=LAM, iters=ITERS,
-                                  spec=spec, cipher="gold",
-                                  key_bits=KEY_BITS, seed=SEED,
-                                  device="cuda")
     rec = {}
     real_make_box = protocol.make_box
 
@@ -316,21 +460,21 @@ def run_main_path(protocol, gold, bi, build, QuantSpec, make_lasso):
     try:
         build.reset_launches()
         t0 = time.perf_counter()
-        gold_res = protocol.run_protocol(inst.A, inst.y, cfg)
+        gold_res = protocol.run_protocol(
+            inst.A, inst.y, lasso_config(protocol, QuantSpec, "gold", ITERS))
         wall = time.perf_counter() - t0
         launches = dict(build.LAUNCHES)
     finally:
         protocol.make_box = real_make_box
     plain_res = protocol.run_protocol(
-        inst.A, inst.y, protocol.ProtocolConfig(
-            K=K, rho=RHO, lam=LAM, iters=ITERS, spec=spec, cipher="plain",
-            seed=SEED, device="cuda"))
+        inst.A, inst.y, lasso_config(protocol, QuantSpec, "plain", ITERS))
     assert gold_res.history.shape == (ITERS, N)
     assert np.all(np.isfinite(gold_res.history))
     assert gold_res.history.tobytes() == plain_res.history.tobytes(), \
         "gold history differs from the plain arm"
-    for name, n in launches.items():
-        assert n > 0, f"kernel {name} was not launched on the main path"
+    for name in MAIN_PATH_BODIES:
+        assert launches[name] > 0, \
+            f"kernel body {name} was not launched on the main path"
     # replay the blinding rng: the share phase's K encryptions, then the
     # first round's (z, v) pair per edge; sample each call's first rows
     box = rec["box"]
@@ -349,6 +493,130 @@ def run_main_path(protocol, gold, bi, build, QuantSpec, make_lasso):
     return gold_res, wall, launches, checked
 
 
+def _kernel_group(name):
+    if "mulmod_kernel" in name:
+        return "mulmod"
+    if "modexp_fixed" in name:
+        return "modexp_fixed"
+    if "modexp" in name:
+        return "modexp"
+    if name.startswith(("Memcpy", "Memset")):
+        return "memcpy/memset"
+    return "plain torch kernels"
+
+
+def time_split(protocol, lm, mx, QuantSpec, make_lasso, first_row,
+               round_s):
+    """One main-path round (round 0 after the share phase, in a run of its
+    own) under ``torch.profiler``: device time by kernel, and the device's
+    idle share of that round's wall time and of ``round_s`` (the median
+    round of the unprofiled run; the profiler adds host time).  CUDA
+    events around each kernel wrapper time every launch of the round with
+    its batch size."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    inst = make_lasso(M, N, sparsity=0.1, noise=0.01, seed=SEED)
+    records, recording, traces = [], [False], []
+
+    def timed(mod, attr, label):
+        real = getattr(mod, attr)
+
+        def wrapper(*args, **kwargs):
+            if not recording[0]:
+                return real(*args, **kwargs)
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            result = real(*args, **kwargs)
+            stop.record()
+            rows = args[0] if isinstance(args[0], torch.Tensor) \
+                else args[0][0]                # a pair: B per half
+            records.append((label, int(rows.shape[0]), start, stop))
+            return result
+        setattr(mod, attr, wrapper)
+        return mod, attr, real
+
+    patched = [timed(lm, "mulmod_cuda", "mulmod"),
+               timed(mx, "modexp_cuda", "modexp"),
+               timed(mx, "modexp_fixed_cuda", "modexp_fixed"),
+               timed(mx, "modexp_fixed_pair_cuda", "modexp_fixed pair")]
+    real_lap = protocol._PhaseClock.lap
+
+    def on_trace(prof):
+        traces.append([(e.name, e.time_range.elapsed_us())
+                       for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and not e.name.startswith("ProfilerStep")])
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=1, warmup=1, active=1),
+                 on_trace_ready=on_trace) as prof:
+        def lap(clock, phase):                 # init: wait, share: warmup,
+            real_lap(clock, phase)             # round 0: recorded
+            prof.step()
+            recording[0] = phase == protocol.PHASE_SHARE
+
+        protocol._PhaseClock.lap = lap
+        try:
+            res = protocol.run_protocol(
+                inst.A, inst.y, lasso_config(protocol, QuantSpec, "gold", 1))
+        finally:
+            protocol._PhaseClock.lap = real_lap
+            for mod, attr, real in patched:
+                setattr(mod, attr, real)
+    assert res.history[0].tobytes() == first_row.tobytes(), \
+        "profiled round differs from the main path's first round"
+    torch.cuda.synchronize()
+    round_ms = 1e3 * res.stats["seconds"]["rounds"][0]
+    by_shape = defaultdict(lambda: [0, 0.0])
+    for label, B, start, stop in records:
+        by_shape[(label, B)][0] += 1
+        by_shape[(label, B)][1] += start.elapsed_time(stop)
+    device = defaultdict(lambda: [0, 0.0])
+    plain_names = defaultdict(float)
+    for name, us in (traces[0] if traces else []):
+        group = _kernel_group(name)
+        device[group][0] += 1
+        device[group][1] += us / 1e3
+        if group == "plain torch kernels":
+            plain_names[name[:60]] += us / 1e3
+    busy_ms = sum(ms for _, ms in device.values())
+    profiler_saw_device = busy_ms > 0
+    if not profiler_saw_device:                # events: our kernels only
+        for (label, _), (n, ms) in by_shape.items():
+            device[label][0] += n
+            device[label][1] += ms
+        busy_ms = sum(ms for _, ms in device.values())
+    split = {
+        "round_ms": round_ms, "device_busy_ms": busy_ms,
+        "idle_share": 1.0 - busy_ms / round_ms,
+        "unprofiled_round_ms": 1e3 * round_s,
+        "idle_share_of_unprofiled_round": 1.0 - busy_ms / (1e3 * round_s),
+        "profiler_device_time": profiler_saw_device,
+        "device_ms_by_kernel": {g: {"launches": n, "ms": ms}
+                                for g, (n, ms) in sorted(device.items())},
+        "top_plain_torch_kernels_ms": dict(sorted(
+            plain_names.items(), key=lambda kv: -kv[1])[:6]),
+        "event_ms_by_shape": [
+            {"kernel": label, "B": B, "launches": n, "ms": ms}
+            for (label, B), (n, ms) in sorted(by_shape.items())],
+    }
+    return split
+
+
+def run_scaled(protocol, QuantSpec, make_lasso):
+    """One round at N = N_SCALED against its plain arm."""
+    inst = make_lasso(M, N_SCALED, sparsity=0.1, noise=0.01, seed=SEED)
+    runs = {}
+    for cipher in ("gold", "plain"):
+        cfg = lasso_config(protocol, QuantSpec, cipher, 1)
+        runs[cipher] = protocol.run_protocol(inst.A, inst.y, cfg)
+    gold_res = runs["gold"]
+    assert gold_res.history.shape == (1, N_SCALED)
+    assert gold_res.history.tobytes() == runs["plain"].history.tobytes(), \
+        f"gold history differs from the plain arm at N = {N_SCALED}"
+    return gold_res.stats["seconds"]
+
+
 def main():
     require_card()
     sys.path.insert(0, os.path.join(REPO, "src"))
@@ -357,26 +625,22 @@ def main():
     from repro_torch.core import protocol
     from repro_torch.core.quantization import QuantSpec
     from repro_torch.data.synthetic import make_lasso
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import build, geometry, ops
     from repro_torch.kernels import limb_mulmod as lm
     from repro_torch.kernels import modexp as mx
     from repro_torch.kernels import montgomery as mg
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
 
-    t0 = time.perf_counter()
-    logs = build.build_all(ptxas_verbose=True)
-    log(f"build: {time.perf_counter() - t0:.2f} s ({len(logs)} kernels "
-        f"compiled)")
-    for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "stack frame" in line:
-                log(f"  {name}: {line.strip()}")
-
+    build_kernels(build)
     key = gold.keygen(KEY_BITS, random.Random(SEED))
     log("kernels vs plain versions on the card:")
     packs = check_kernels(key, bi, ops, mg, lm, mx, dev)
     log("kernels vs plain versions at main-path shapes, timed:")
-    times = time_kernels(key, packs, bi, mg, lm, mx, dev)
+    times, sweep, pair = time_kernels(key, packs, bi, geometry, mg, lm, mx,
+                                      dev)
+    log("group sizes: " + json.dumps(sweep))
+    log("two-half launch: " + json.dumps(pair))
 
     log(f"main path: gold LASSO, {KEY_BITS}-bit key, Delta={DELTA:g}, "
         f"K={K}, N={N}, M={M}, iters={ITERS}")
@@ -385,23 +649,28 @@ def main():
     secs = res.stats["seconds"]
     log(f"  wall {wall:.2f} s; init {secs['init']:.3f} s, share "
         f"{secs['share']:.3f} s, iterate {secs['iterate']:.3f} s; rounds "
-        + ", ".join(f"{s:.3f}" for s in secs["rounds"]) + " s")
+        + ", ".join(f"{s:.4f}" for s in secs["rounds"]) + " s")
     log(f"  history equals the plain arm bit for bit; {checked} sampled "
         f"ciphertexts equal scalar encrypt_crt; launches {launches}")
-    log("variants: " + json.dumps(
-        {k: v for k, v in times.items()
-         if k not in ("mulmod", "modexp[montgomery,win4]",
-                      "modexp_fixed[montgomery]")}))
+
+    log("time split of one main-path round (torch.profiler):")
+    split = time_split(protocol, lm, mx, QuantSpec, make_lasso,
+                       res.history[0], float(np.median(secs["rounds"])))
+    log("split: " + json.dumps(split))
+
+    log(f"one round at N={N_SCALED} (Nk={N_SCALED // K}):")
+    scaled = run_scaled(protocol, QuantSpec, make_lasso)
+    log(f"  share {scaled['share']:.3f} s, round "
+        f"{scaled['rounds'][0]:.4f} s; history equals the plain arm")
+    log(f"script: {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
-    for name, timed in (("mulmod", "mulmod"),
-                        ("modexp", "modexp[montgomery,win4]"),
-                        ("modexp_fixed", "modexp_fixed[montgomery]")):
-        t = times[timed]
+    for body in geometry.BODIES:
+        t = times[body]
+        source, replaces = BODY_SOURCES[body]
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": REPLACES[name], "launches": launches[name],
+            "name": body, "route": "cuda", "source": f"{CSRC}/{source}",
+            "replaces": replaces, "launches": launches[body],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,

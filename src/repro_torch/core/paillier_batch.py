@@ -91,8 +91,9 @@ def _halves(bk: BatchKey, bp, bq, exps, scalar_e, fixed: bool):
     """x' = bp^e mod p^2, x'' = bq^e mod q^2, recombined mod n^2."""
     key, vk = bk.key, bk.vk
     if fixed and scalar_e is not None:
-        xp = ops.modexp_fixed(bp, scalar_e % key.phi_p2, vk.pack_p2)
-        xq = ops.modexp_fixed(bq, scalar_e % key.phi_q2, vk.pack_q2)
+        xp, xq = ops.modexp_fixed_pair(
+            (bp, bq), (scalar_e % key.phi_p2, scalar_e % key.phi_q2),
+            (vk.pack_p2, vk.pack_q2))
     else:
         ep = [e % key.phi_p2 for e in exps]
         eq = [e % key.phi_q2 for e in exps]
@@ -107,7 +108,7 @@ def modexp_crt_limbs(bk: BatchKey, bases: Sequence[int], exps,
     """[b^e mod n^2] as (B, L16(n^2)) limbs; ``exps`` scalar or per-element.
 
     ``fixed=True`` runs a SCALAR exponent through the host-known
-    fixed-window ladder (``ops.modexp_fixed``); per-element exponent
+    fixed-window ladder (``ops.modexp_fixed_pair``); per-element exponent
     lists ignore the flag.  Exponent limbs size to the batch maximum
     after the phi reduction.
     """

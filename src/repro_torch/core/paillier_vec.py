@@ -143,8 +143,8 @@ def decrypt_batch_limbs(vk: VecKey, c_limbs: torch.Tensor) -> torch.Tensor:
     cq = _reduce_into(c_limbs, vk.pack_q2)
     lam_p = bi.to_ints(np.asarray(vk.lam_p).reshape(1, -1))[0]
     lam_q = bi.to_ints(np.asarray(vk.lam_q).reshape(1, -1))[0]
-    xp = ops.modexp_fixed(cp, lam_p, vk.pack_p2)
-    xq = ops.modexp_fixed(cq, lam_q, vk.pack_q2)
+    xp, xq = ops.modexp_fixed_pair((cp, cq), (lam_p, lam_q),
+                                   (vk.pack_p2, vk.pack_q2))
     x = crt_combine_batch(vk, xp, xq)                # c^lam mod n^2
     Ln = vk.pack_n.L16
     k_limbs = Ln + 1

@@ -8,8 +8,9 @@ hash of the sources and flags, so a later process loads them without
 rebuilding and an edited source rebuilds.  Nothing here runs at import:
 this module imports on machines without a card or a CUDA toolkit.
 
-Launch counts: each kernel wrapper adds one to ``LAUNCHES[name]`` where it
-launches its kernel, and nowhere else.
+Launch counts: each kernel wrapper adds one to ``LAUNCHES[body]`` where it
+launches its kernel, and nowhere else; the keys are the seven kernel
+bodies of ``geometry.BODIES``.
 """
 from __future__ import annotations
 
@@ -22,26 +23,34 @@ import threading
 import time
 from pathlib import Path
 
+from . import geometry
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 NVCC_TIMEOUT_S = 900
-#: widest modulus the kernels take, in 32-bit words (``MAXW`` in limbs.cuh)
-MAX_WORDS = 128
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+#: the launch geometry every launcher takes: threads per integer, words
+#: per thread, threads per block, blocks, dynamic shared memory bytes
+_GEOM = (_I, _I, _I, _I, _I)
+#: one modulus of a modexp_fixed launch: windows, m, r1 or mu, r2, mp
+_HALF = (_P, _P, _P, _P, _U)
 #: kernel name -> (exported C function, its argument types)
 KERNELS = {
-    "mulmod": ("mulmod_launch", (_P, _P, _P, _I, _I, _P, _P, _I, _P)),
+    "mulmod": ("mulmod_launch", (_P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P)),
     "modexp": ("modexp_launch",
-               (_P, _P, _P, _I, _I, _I, _P, _P, _P, _U, _I, _I, _I, _P)),
+               (_P, _P, _P, _I, _I, _I, _P, _P, _P, _U, _I, _I, _I, *_GEOM,
+                _P)),
     "modexp_fixed": ("modexp_fixed_launch",
-                     (_P, _P, _I, _I, _P, _I, _P, _P, _P, _U, _I, _I, _P)),
+                     (_P, _P, _I, _I, _I, _I, *_HALF, *_HALF, _I, _I, *_GEOM,
+                      _P)),
 }
 
-#: launches per kernel, bumped by the wrappers; reset with reset_launches()
-LAUNCHES = dict.fromkeys(KERNELS, 0)
+#: launches per kernel body (``geometry.BODIES``), bumped by the wrappers;
+#: reset with reset_launches()
+LAUNCHES = dict.fromkeys(geometry.BODIES, 0)
 
 _FUNCS: dict = {}
 _LOCK = threading.Lock()
@@ -71,11 +80,13 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(ptxas_verbose: bool = False) -> dict[str, str]:
-    """Compile every kernel whose library is missing, in parallel.
+def build_all(ptxas_verbose: bool = False,
+              rebuild: bool = False) -> dict[str, str]:
+    """Compile every kernel whose library is missing (every kernel with
+    ``rebuild``), in parallel.
 
     Returns each compiled kernel's compiler output (with
-    ``ptxas_verbose``, the registers, stack and spills per kernel);
+    ``ptxas_verbose``, the registers, stack and spills per instantiation);
     raises with the output of every ``nvcc`` that failed.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -83,7 +94,7 @@ def build_all(ptxas_verbose: bool = False) -> dict[str, str]:
     procs = {}
     for name in KERNELS:
         out = library_path(name)
-        if out.exists():
+        if out.exists() and not rebuild:
             continue
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
         verbose = ("-Xptxas", "-v") if ptxas_verbose else ()
@@ -136,12 +147,6 @@ def require_rows(name: str, x, rows: int, cols: int) -> None:
         raise ValueError(f"{name}: expected a CUDA tensor of shape "
                          f"({rows}, {cols}), got {tuple(x.shape)} on "
                          f"{x.device}")
-
-
-def require_width(words: int) -> None:
-    if words > MAX_WORDS:
-        raise ValueError(f"modulus of {words} 32-bit words is wider than the "
-                         f"kernels' {MAX_WORDS} ({32 * MAX_WORDS} bits)")
 
 
 def check(rc: int, name: str) -> None:

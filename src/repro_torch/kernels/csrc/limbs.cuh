@@ -1,16 +1,31 @@
 // Multi-precision integer helpers shared by the limb kernels.
 //
-// One CUDA thread owns one big integer.  Inside a kernel a big integer is
-// a little-endian row of 32-bit words; products are 32x32->64 bits
-// (mul.wide.u32 / mad.hi), so a k-word schoolbook product costs k^2 word
-// products.  At the public boundary every row is the reference's
+// Two designs live here.
+//
+// * One thread per big integer: mulmod and the Barrett bodies of modexp
+//   and modexp_fixed.  A big integer is a little-endian row of 32-bit
+//   words in per-thread local arrays sized for the widest modulus (MAXW
+//   words); loops run to the actual width k.  Local memory is laid out so
+//   that the same word of every thread of a warp is contiguous, so the
+//   uniform loops below make coalesced accesses.
+//
+// * A group of TPI threads per big integer (the Montgomery bodies of
+//   modexp and modexp_fixed): lane j of the group holds words
+//   j*NW .. j*NW + NW-1 of every operand in registers (TPI and NW are
+//   template parameters, so every register array is indexed by unrolled
+//   loops only).  Words at and above the width k are zero.  mont_mul below
+//   is the CIOS product of Koc et al. 1996 distributed over the group, in
+//   the layout of NVlabs' CGBN.
+//
+// Products are 32x32->64 bits, so a k-word schoolbook product costs k^2
+// word products.  At the public boundary every row is the reference's
 // radix-2^16 layout (int32 limbs < 2^16), packed into words on load and
 // unpacked on store; the Python wrappers never reinterpret integer types.
 //
-// The per-thread rows live in local arrays sized for the widest modulus
-// (MAXW words); loops run to the actual width k.  Local memory is laid
-// out so that the same word of every thread of a warp is contiguous, so
-// the uniform loops below make coalesced accesses.
+// Launch geometry (threads per integer, integers per block, blocks and
+// dynamic shared memory) is computed by the Python function
+// repro_torch.kernels.geometry.launch_geometry and passed to every C
+// launcher, which checks it and launches with it.
 #pragma once
 
 #include <cstdint>
@@ -24,13 +39,7 @@ typedef uint64_t u64;
 // Widest modulus the kernels take: 128 words = 4096 bits (n^2 of a
 // 2048-bit Paillier key).
 constexpr int MAXW = 128;
-
-// Threads per block of every launch, at every batch size.  One warp per
-// block spreads a small batch (B = Nk = 192 in an encryption's
-// modexp_fixed) over as many SMs as it has warps.
-constexpr int BLOCK = 32;
-
-inline int n_blocks(int B) { return (B + BLOCK - 1) / BLOCK; }
+constexpr u32 FULL = 0xFFFFFFFFu;
 
 // Word i of a radix-2^16 int32 row of l16 limbs (missing limbs are 0).
 __device__ __forceinline__ u32 word16(const int32_t* __restrict__ src,
@@ -39,6 +48,10 @@ __device__ __forceinline__ u32 word16(const int32_t* __restrict__ src,
   u32 hi = (2 * i + 1 < l16) ? (u32)src[2 * i + 1] : 0u;
   return (lo & 0xFFFFu) | (hi << 16);
 }
+
+// ---------------------------------------------------------------------------
+// One thread per big integer
+// ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void load_row(const int32_t* __restrict__ src,
                                          int l16, u32* dst, int nw) {
@@ -125,48 +138,11 @@ __device__ __forceinline__ void barrett(const u32* x, const u32* m,
   cond_sub(r, m, k);
 }
 
-// Montgomery product (CIOS, Koc et al. 1996): r = a * b * 2^{-32k} mod m,
-// canonical.  Needs m odd, mp = -m^{-1} mod 2^32, a, b < 2^{32k} and
-// a * b < 2^{32k} m.  Scratch t: k+2 words.  r may alias a or b.
-__device__ __forceinline__ void montmul(const u32* a, const u32* b,
-                                        const u32* m, u32 mp, int k, u32* t,
-                                        u32* r) {
-  for (int i = 0; i < k + 2; ++i) t[i] = 0;
-  for (int i = 0; i < k; ++i) {
-    u64 c = 0;
-    const u64 bi = b[i];
-    for (int j = 0; j < k; ++j) {
-      u64 s = a[j] * bi + t[j] + c;
-      t[j] = (u32)s;
-      c = s >> 32;
-    }
-    u64 s = (u64)t[k] + c;
-    t[k] = (u32)s;
-    t[k + 1] = (u32)(s >> 32);
-    const u64 u = (u32)(t[0] * mp);
-    s = u * m[0] + t[0];
-    c = s >> 32;
-    for (int j = 1; j < k; ++j) {
-      s = u * m[j] + t[j] + c;
-      t[j - 1] = (u32)s;
-      c = s >> 32;
-    }
-    s = (u64)t[k] + c;
-    t[k - 1] = (u32)s;
-    t[k] = t[k + 1] + (u32)(s >> 32);
-  }
-  cond_sub(t, m, k);  // t < 2m -> canonical
-  for (int i = 0; i < k; ++i) r[i] = t[i];
-}
-
-// A modular multiply over one modulus, by Barrett or by Montgomery; the
-// ladders are written once over it.  ``m`` and ``aux`` point to shared
-// memory: aux is mu (k+1 words) for Barrett, unused for Montgomery.
-template <bool MONT>
-struct Field {
+// The Barrett modular multiply of the one-thread ladders.  ``m`` and
+// ``mu`` (k+1 words) point to shared memory.
+struct BarrettField {
   const u32* m;
-  const u32* aux;
-  u32 mp;
+  const u32* mu;
   int k;
   // per-thread scratch
   u32 x[2 * MAXW + 2];
@@ -174,17 +150,197 @@ struct Field {
   u32 r2[MAXW + 1];
   u32 rr[MAXW + 1];
 
-  // out = a * b in the field's domain (out may alias a or b)
+  // out = a * b mod m (out may alias a or b)
   __device__ __forceinline__ void mulmod(const u32* a, const u32* b,
                                          u32* out) {
-    if (MONT) {
-      montmul(a, b, m, mp, k, x, out);
-    } else {
-      mul(a, k, b, k, x);
-      barrett(x, m, aux, k, q, r2, rr);
-      for (int i = 0; i < k; ++i) out[i] = rr[i];
+    mul(a, k, b, k, x);
+    barrett(x, m, mu, k, q, r2, rr);
+    for (int i = 0; i < k; ++i) out[i] = rr[i];
+  }
+
+  // out = a mod m for a row a of k words
+  __device__ __forceinline__ void reduce(const u32* a, u32* out) {
+    for (int i = 0; i < k; ++i) {
+      x[i] = a[i];
+      x[k + i] = 0;
     }
+    barrett(x, m, mu, k, q, r2, rr);
+    for (int i = 0; i < k; ++i) out[i] = rr[i];
   }
 };
+
+// ---------------------------------------------------------------------------
+// A group of TPI threads per big integer
+// ---------------------------------------------------------------------------
+
+// Lane of this thread within its group (TPI is a power of two <= 32).
+template <int TPI>
+__device__ __forceinline__ int group_lane() {
+  return threadIdx.x & (TPI - 1);
+}
+
+// This group's TPI bits of a warp-wide ballot.
+template <int TPI>
+__device__ __forceinline__ u32 group_bits(u32 ballot) {
+  if constexpr (TPI == 32) {
+    return ballot;
+  } else {
+    const int first = (threadIdx.x & 31) & ~(TPI - 1);
+    return (ballot >> first) & ((1u << TPI) - 1u);
+  }
+}
+
+// Carry lookahead across the group in a fixed instruction count.  Lane j
+// generates a carry (bit j of g) or propagates an incoming one (bit j of
+// p: its words are all ones, or all zeros for a borrow); never both.  Bit
+// j of the result is the carry into lane j, bit TPI the carry out of the
+// group: c_j = g_{j-1} | (p_{j-1} & c_{j-1}) evaluated by one addition.
+__device__ __forceinline__ u64 lookahead(u64 g, u64 p) {
+  return ((g << 1) + p) ^ p;
+}
+
+// The group's row of src (l16 radix-2^16 limbs): lane j gets words
+// j*NW .. j*NW + NW-1, zero at and above word k and everywhere when !live.
+template <int TPI, int NW>
+__device__ __forceinline__ void group_load(const int32_t* __restrict__ src,
+                                           int l16, int k, bool live,
+                                           u32 (&x)[NW]) {
+  const int lane = group_lane<TPI>();
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    const int i = lane * NW + w;
+    x[w] = (live && i < k) ? word16(src, l16, i) : 0u;
+  }
+}
+
+// Store the group's row as l16 radix-2^16 limbs.
+template <int TPI, int NW>
+__device__ __forceinline__ void group_store(const u32 (&x)[NW], int l16,
+                                            int32_t* __restrict__ dst) {
+  const int lane = group_lane<TPI>();
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    const int i = lane * NW + w;
+    if (2 * i < l16) dst[2 * i] = (int32_t)(x[w] & 0xFFFFu);
+    if (2 * i + 1 < l16) dst[2 * i + 1] = (int32_t)(x[w] >> 16);
+  }
+}
+
+// The integer 1 (Montgomery exit multiplier) in the group layout.
+template <int TPI, int NW>
+__device__ __forceinline__ void group_one(u32 (&x)[NW]) {
+  const int lane = group_lane<TPI>();
+#pragma unroll
+  for (int w = 0; w < NW; ++w) x[w] = (lane == 0 && w == 0) ? 1u : 0u;
+}
+
+// Cooperative Montgomery product (CIOS): r = a * b * 2^{-32k} mod m,
+// canonical, for m odd, mp = -m^{-1} mod 2^32, a, b < 2^{32k} and
+// a * b < 2^{32k} m.  R = 2^{32k} whatever the padding TPI * NW - k.
+// r may alias a or b.  Every thread of the warp must call it with the
+// same k: it shuffles and ballots across the full warp.
+//
+// Word i of b (lane i / NW, slot i % NW) is broadcast by a shuffle; each
+// lane multiply-adds its NW words of a into its words of the running sum
+// t; u = t_0 mp comes from lane 0; each lane adds u times its words of m;
+// the one-word shift moves lane j+1's lowest word to lane j's top.  The
+// carry out of lane j's words is kept in c (at word (j+1)NW) and enters
+// lane j's top word at the shift, so c stays below 2^34 and no carry ever
+// ripples inside the loop.  After the k steps, c (< 4) goes to lane j+1
+// and the group resolves the one-bit carries by lookahead; then r - m is
+// formed with the borrow resolved the same way, and kept by a mask when
+// r >= m.
+template <int TPI, int NW>
+__device__ __forceinline__ void mont_mul(const u32 (&a)[NW],
+                                         const u32 (&b)[NW],
+                                         const u32 (&m)[NW], u32 mp, int k,
+                                         u32 (&r)[NW]) {
+  const int lane = group_lane<TPI>();
+  u32 t[NW];
+#pragma unroll
+  for (int w = 0; w < NW; ++w) t[w] = 0;
+  u64 c = 0;
+  const int n_src = (k + NW - 1) / NW;
+  for (int src = 0; src < n_src; ++src) {
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      if (src * NW + w < k) {
+        const u32 bi = __shfl_sync(FULL, b[w], src, TPI);
+        u32 cy = 0;
+#pragma unroll
+        for (int x = 0; x < NW; ++x) {  // t += a * b_i
+          const u64 s = (u64)a[x] * bi + t[x] + cy;
+          t[x] = (u32)s;
+          cy = (u32)(s >> 32);
+        }
+        c += cy;
+        const u32 u = __shfl_sync(FULL, t[0] * mp, 0, TPI);
+        cy = 0;
+#pragma unroll
+        for (int x = 0; x < NW; ++x) {  // t += u * m; lane 0's t[0] -> 0
+          const u64 s = (u64)u * m[x] + t[x] + cy;
+          t[x] = (u32)s;
+          cy = (u32)(s >> 32);
+        }
+        c += cy;
+        // t >>= 32 across the group
+        const u32 next = __shfl_down_sync(FULL, t[0], 1, TPI);
+#pragma unroll
+        for (int x = 0; x + 1 < NW; ++x) t[x] = t[x + 1];
+        const u64 s = (u64)(lane == TPI - 1 ? 0u : next) + c;
+        t[NW - 1] = (u32)s;
+        c = s >> 32;
+      }
+    }
+  }
+  // lane j-1's carry (< 4) into lane j's words; carries out by lookahead
+  u32 cin = __shfl_up_sync(FULL, (u32)c, 1, TPI);
+  if (lane == 0) cin = 0;
+  u32 ones = FULL;
+#pragma unroll
+  for (int x = 0; x < NW; ++x) {
+    const u64 s = (u64)t[x] + cin;
+    t[x] = (u32)s;
+    cin = (u32)(s >> 32);
+    ones &= t[x];
+  }
+  u64 look = lookahead(group_bits<TPI>(__ballot_sync(FULL, cin != 0)),
+                       group_bits<TPI>(__ballot_sync(FULL, ones == FULL)));
+  cin = (u32)(look >> lane) & 1u;
+#pragma unroll
+  for (int x = 0; x < NW; ++x) {
+    const u64 s = (u64)t[x] + cin;
+    t[x] = (u32)s;
+    cin = (u32)(s >> 32);
+  }
+  // the word above the group's capacity: lane TPI-1's own carry plus the
+  // lookahead's carry out (0 or 1 in all, since the result is < 2m)
+  const u32 over =
+      ((u32)(look >> TPI) & 1u) |
+      (group_bits<TPI>(__ballot_sync(FULL, lane == TPI - 1 && c != 0)) != 0);
+  // d = t - m with the borrows resolved by lookahead
+  u32 d[NW];
+  u32 br = 0, zeros = 0;
+#pragma unroll
+  for (int x = 0; x < NW; ++x) {
+    const u64 s = (u64)t[x] - m[x] - br;
+    d[x] = (u32)s;
+    br = (u32)(s >> 63);
+    zeros |= d[x];
+  }
+  look = lookahead(group_bits<TPI>(__ballot_sync(FULL, br != 0)),
+                   group_bits<TPI>(__ballot_sync(FULL, zeros == 0)));
+  br = (u32)(look >> lane) & 1u;
+#pragma unroll
+  for (int x = 0; x < NW; ++x) {
+    const u64 s = (u64)d[x] - br;
+    d[x] = (u32)s;
+    br = (u32)(s >> 63);
+  }
+  // keep d when t >= m: an overflow word, or no borrow out of the group
+  const u32 keep = 0u - (over | (((u32)(look >> TPI) & 1u) ^ 1u));
+#pragma unroll
+  for (int x = 0; x < NW; ++x) r[x] = (d[x] & keep) | (t[x] & ~keep);
+}
 
 }  // namespace limbs

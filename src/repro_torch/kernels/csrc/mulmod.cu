@@ -47,13 +47,18 @@ __global__ void mulmod_kernel(const int32_t* __restrict__ a,
 }
 
 // a, b, out: (B, l16) int32 radix-2^16 rows; m16: 2k limbs; mu16: 2(k+1)
-// limbs.  Returns the CUDA error of the launch (0 on success).
+// limbs; threads and blocks: the launch geometry (one thread per
+// element, geometry.launch_geometry).  Returns the CUDA error of the
+// launch (0 on success).
 extern "C" int mulmod_launch(const int32_t* a, const int32_t* b, int32_t* out,
                              int B, int l16, const int32_t* m16,
-                             const int32_t* mu16, int k, void* stream) {
-  if (k < 1 || k > MAXW || l16 > 2 * k) return (int)cudaErrorInvalidValue;
+                             const int32_t* mu16, int k, int threads,
+                             int blocks, void* stream) {
+  if (k < 1 || k > MAXW || l16 > 2 * k || threads < 1 || threads > 1024 ||
+      (long long)blocks * threads < B)
+    return (int)cudaErrorInvalidValue;
   if (B <= 0) return 0;
-  mulmod_kernel<<<n_blocks(B), BLOCK, 0, (cudaStream_t)stream>>>(
+  mulmod_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       a, b, out, B, l16, m16, mu16, k);
   return (int)cudaGetLastError();
 }

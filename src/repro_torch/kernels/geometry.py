@@ -1,0 +1,118 @@
+"""Launch geometry of the limb kernels, in one place.
+
+:func:`launch_geometry` gives, for one launch of a kernel body at batch B
+and modulus width k (32-bit words), the threads per big integer, the
+words each thread holds, the integers per block, the blocks and the
+dynamic shared memory.  The C launchers (``csrc/*.cu``) receive these
+values, check them and launch with them; they compute none of their own.
+
+* One thread per integer (``mulmod`` and the Barrett bodies): 32-thread
+  blocks, no dynamic shared memory.
+* A group of threads per integer (the Montgomery bodies of ``modexp`` and
+  ``modexp_fixed``): ``TPI`` threads, each holding ceil(k / TPI) words
+  rounded up to a power of two, one of the instantiations that ``SHAPES``
+  lists (the ``*_SHAPES`` macros of the sources).  ``modexp_fixed`` runs
+  one warp per block, so its small batches spread over the SMs;
+  ``modexp`` runs 64-thread blocks.  The win4 and fixed ladders keep a
+  16-entry power table per integer in dynamic shared memory.
+
+Nothing here touches a device: the CPU tests check every width.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+#: widest modulus the kernels take, in 32-bit words (``MAXW`` in limbs.cuh)
+MAX_WORDS = 128
+#: shared memory one block may use on Hopper (227 KB), and threads per block
+MAX_SMEM_BYTES = 227 * 1024
+MAX_THREADS = 1024
+
+#: every kernel body: the launch counters' keys and chip_smoke's names
+BODIES = ("mulmod",
+          "modexp[montgomery,win4]", "modexp[montgomery,binary]",
+          "modexp[barrett,win4]", "modexp[barrett,binary]",
+          "modexp_fixed[montgomery]", "modexp_fixed[barrett]")
+
+#: threads per integer of the cooperative kernels, at every width
+TPI = {"modexp": 8, "modexp_fixed": 32}
+#: (threads per integer, words per thread) of every instantiation
+SHAPES = {
+    "modexp": ((8, 1), (8, 2), (8, 4), (8, 8), (8, 16), (4, 16), (16, 4)),
+    "modexp_fixed": ((32, 1), (32, 2), (32, 4), (16, 4), (8, 8)),
+}
+#: threads per block of the cooperative kernels, and of the one-thread ones
+BLOCK_THREADS = {"modexp": 64, "modexp_fixed": 32}
+ONE_THREAD_BLOCK = 32
+TABLE_ENTRIES = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    tpi: int          # threads per big integer (1: one-thread design)
+    words: int        # 32-bit words each thread holds (cooperative bodies)
+    per_block: int    # big integers per block
+    blocks: int
+    smem: int         # dynamic shared memory per block, bytes
+
+    @property
+    def threads(self) -> int:
+        return self.tpi * self.per_block
+
+
+def body_name(kernel: str, reduce_impl: str = "montgomery",
+              method: str = "win4") -> str:
+    """The body a launch of ``kernel`` runs: ``mulmod``,
+    ``modexp[<reduce_impl>,<method>]`` or ``modexp_fixed[<reduce_impl>]``."""
+    if kernel == "mulmod":
+        return kernel
+    if kernel == "modexp":
+        return f"modexp[{reduce_impl},{method}]"
+    return f"modexp_fixed[{reduce_impl}]"
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def launch_geometry(body: str, B: int, k: int,
+                    tpi: int | None = None) -> Geometry:
+    """Geometry of one launch of ``body`` (one of :data:`BODIES`) over B
+    integers of k words.  ``tpi`` picks another instantiated group size
+    than :data:`TPI`'s, to time the candidates; one-thread bodies take
+    none.  Raises ``ValueError`` for a width outside 1..MAX_WORDS, a
+    negative batch, an instantiation that does not exist, or a block that
+    would exceed 1,024 threads or 227 KB of shared memory."""
+    if body not in BODIES:
+        raise ValueError(f"unknown kernel body {body!r}; expected one of "
+                         f"{BODIES}")
+    if not 1 <= k <= MAX_WORDS:
+        raise ValueError(f"modulus of {k} 32-bit words is outside the "
+                         f"kernels' 1..{MAX_WORDS} ({32 * MAX_WORDS} bits)")
+    if B < 0:
+        raise ValueError(f"negative batch {B}")
+    kernel = body.split("[")[0]
+    if kernel == "mulmod" or "barrett" in body:
+        if tpi not in (None, 1):
+            raise ValueError(f"{body} runs one thread per integer")
+        threads, tpi, words, smem = ONE_THREAD_BLOCK, 1, k, 0
+    else:
+        tpi = TPI[kernel] if tpi is None else tpi
+        words = _pow2_at_least(-(-k // tpi))
+        if (tpi, words) not in SHAPES[kernel]:
+            raise ValueError(
+                f"{body} has no instantiation for {tpi} threads per integer "
+                f"at {k} words ({words} per thread); instantiated: "
+                f"{SHAPES[kernel]}")
+        threads = BLOCK_THREADS[kernel]
+        table = body != "modexp[montgomery,binary]"
+        smem = TABLE_ENTRIES * words * threads * 4 if table else 0
+    if threads > MAX_THREADS:
+        raise ValueError(f"{body} at {k} words: {threads} threads per block "
+                         f"exceed {MAX_THREADS}")
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"{body} at {k} words: {smem} bytes of shared "
+                         f"memory per block exceed {MAX_SMEM_BYTES}")
+    per_block = threads // tpi
+    return Geometry(tpi=tpi, words=words, per_block=per_block,
+                    blocks=-(-B // per_block), smem=smem)

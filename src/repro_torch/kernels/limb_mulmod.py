@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from . import build
+from . import build, geometry
 from . import common as cm
 
 
@@ -34,12 +34,12 @@ def mulmod_cuda(a: torch.Tensor, b: torch.Tensor,
     out = torch.empty((B, dm.L16), dtype=torch.int32, device=a.device)
     if B == 0:
         return out
-    build.require_width(dm.L32)
+    g = geometry.launch_geometry("mulmod", B, dm.L32)
     launch = build.launcher("mulmod")
     with torch.cuda.device(a.device):
         rc = launch(a.data_ptr(), b.data_ptr(), out.data_ptr(), B, dm.L16,
-                    dm.mw.data_ptr(), dm.muw.data_ptr(), dm.L32,
-                    torch.cuda.current_stream(a.device).cuda_stream)
+                    dm.mw.data_ptr(), dm.muw.data_ptr(), dm.L32, g.threads,
+                    g.blocks, torch.cuda.current_stream(a.device).cuda_stream)
     build.check(rc, "mulmod")
     build.LAUNCHES["mulmod"] += 1
     return out

@@ -5,14 +5,18 @@ Port of ``repro.kernels.modexp``:
 * ``modexp`` (``modexp_pallas``): one exponent per element, constant-time
   ladder; ``method`` "binary" (2 products per bit) or "win4" (4-bit
   windows, oblivious table select), ``reduce_impl`` "barrett" or
-  "montgomery" — the four bodies, one CUDA template (``csrc/modexp.cu``);
+  "montgomery" — the four bodies of ``csrc/modexp.cu``;
 * ``modexp_fixed`` (``modexp_fixed_pallas``): one host-known exponent for
   the whole batch, given as its MSB-first 4-bit windows
   (``montgomery.exp_windows``); Barrett or Montgomery
-  (``csrc/modexp_fixed.cu``).
+  (``csrc/modexp_fixed.cu``).  :func:`modexp_fixed_pair_cuda` runs both
+  CRT halves of a Paillier exponentiation in one Montgomery launch.
 
-Each ``*_limbs`` function picks by where the base lives: a CUDA tensor
-launches the kernel (or raises), a CPU tensor takes the plain version.
+The Montgomery bodies run a group of threads per big integer, the
+Barrett bodies one thread; ``geometry.launch_geometry`` sizes every
+launch.  Each ``*_limbs`` function picks by where the base lives: a CUDA
+tensor launches the kernel (or raises), a CPU tensor takes the plain
+version.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ from typing import Sequence
 
 import torch
 
-from . import build
+from . import build, geometry
 from . import common as cm
 from . import montgomery as mg
 
@@ -53,8 +57,11 @@ def _field_args(dm: cm.DeviceModulus, mont: bool):
 
 
 def modexp_cuda(base: torch.Tensor, exp: torch.Tensor, dm: cm.DeviceModulus,
-                method: str, reduce_impl: str) -> torch.Tensor:
-    """The ``csrc/modexp.cu`` kernel on CUDA tensors (same contract)."""
+                method: str, reduce_impl: str,
+                tpi: int | None = None) -> torch.Tensor:
+    """The ``csrc/modexp.cu`` kernel on CUDA tensors (same contract).
+    ``tpi`` times another instantiated group size than the launch
+    geometry's own (``geometry.launch_geometry``)."""
     base = base.to(torch.int32).contiguous()
     exp = exp.to(device=base.device, dtype=torch.int32).contiguous()
     B, le16 = base.shape[0], exp.shape[1]
@@ -63,44 +70,93 @@ def modexp_cuda(base: torch.Tensor, exp: torch.Tensor, dm: cm.DeviceModulus,
     out = torch.empty((B, dm.L16), dtype=torch.int32, device=base.device)
     if B == 0:
         return out
-    build.require_width(dm.L32)
+    body = geometry.body_name("modexp", reduce_impl, method)
+    g = geometry.launch_geometry(body, B, dm.L32, tpi)
     mont = reduce_impl == "montgomery"
     launch = build.launcher("modexp")
     with torch.cuda.device(base.device):
         rc = launch(base.data_ptr(), exp.data_ptr(), out.data_ptr(), B,
                     dm.L16, le16, *_field_args(dm, mont), dm.L32, int(mont),
-                    int(method == "win4"),
+                    int(method == "win4"), g.tpi, g.words, g.threads,
+                    g.blocks, g.smem,
                     torch.cuda.current_stream(base.device).cuda_stream)
-    build.check(rc, "modexp")
-    build.LAUNCHES["modexp"] += 1
+    build.check(rc, body)
+    build.LAUNCHES[body] += 1
+    return out
+
+
+def _check_windows(windows: Sequence[int]) -> None:
+    if not windows or min(windows) < 0 or max(windows) > 15:
+        raise ValueError("modexp_fixed needs 4-bit windows (e > 0)")
+
+
+def _launch_fixed(base: torch.Tensor, B0: int, windows, dms, mont: bool,
+                  tpi: int | None) -> torch.Tensor:
+    """One ``csrc/modexp_fixed.cu`` launch: rows [0, B0) of ``base`` to
+    the power of ``windows[0]`` mod ``dms[0]``, rows [B0, B) with
+    ``windows[-1]`` mod ``dms[-1]``.  The shorter schedule is padded in
+    front with zero windows, which leave the ladder's 1 unchanged."""
+    dm = dms[0]
+    B = base.shape[0]
+    out = torch.empty((B, dm.L16), dtype=torch.int32, device=base.device)
+    if B == 0:
+        return out
+    body = geometry.body_name("modexp_fixed",
+                              "montgomery" if mont else "barrett")
+    g = geometry.launch_geometry(body, B, dm.L32, tpi)
+    n_win = max(len(w) for w in windows)
+    win = torch.tensor([[0] * (n_win - len(w)) + list(w)
+                        for w in (windows[0], windows[-1])],
+                       dtype=torch.int32, device=base.device)
+    halves = []
+    for h, d in ((0, dms[0]), (1, dms[-1])):
+        halves += [win[h].data_ptr(), *_field_args(d, mont)]
+    launch = build.launcher("modexp_fixed")
+    with torch.cuda.device(base.device):
+        rc = launch(base.data_ptr(), out.data_ptr(), B, B0, dm.L16, n_win,
+                    *halves, dm.L32, int(mont), g.tpi, g.words, g.threads,
+                    g.blocks, g.smem,
+                    torch.cuda.current_stream(base.device).cuda_stream)
+    build.check(rc, body)
+    build.LAUNCHES[body] += 1
     return out
 
 
 def modexp_fixed_cuda(base: torch.Tensor, windows: Sequence[int],
-                      dm: cm.DeviceModulus,
-                      reduce_impl: str) -> torch.Tensor:
+                      dm: cm.DeviceModulus, reduce_impl: str,
+                      tpi: int | None = None) -> torch.Tensor:
     """The ``csrc/modexp_fixed.cu`` kernel on CUDA tensors; ``windows``
-    must be non-empty (e = 0 is answered without a launch)."""
+    must be non-empty (e = 0 is answered without a launch).  ``tpi`` as
+    for :func:`modexp_cuda`."""
     base = base.to(torch.int32).contiguous()
     B = base.shape[0]
     build.require_rows("modexp_fixed base", base, B, dm.L16)
-    if not windows or min(windows) < 0 or max(windows) > 15:
-        raise ValueError("modexp_fixed needs 4-bit windows (e > 0)")
-    out = torch.empty((B, dm.L16), dtype=torch.int32, device=base.device)
-    if B == 0:
-        return out
-    build.require_width(dm.L32)
-    win = torch.tensor(list(windows), dtype=torch.int32, device=base.device)
-    mont = reduce_impl == "montgomery"
-    launch = build.launcher("modexp_fixed")
-    with torch.cuda.device(base.device):
-        rc = launch(base.data_ptr(), out.data_ptr(), B, dm.L16,
-                    win.data_ptr(), win.numel(), *_field_args(dm, mont),
-                    dm.L32, int(mont),
-                    torch.cuda.current_stream(base.device).cuda_stream)
-    build.check(rc, "modexp_fixed")
-    build.LAUNCHES["modexp_fixed"] += 1
-    return out
+    _check_windows(windows)
+    return _launch_fixed(base, B, (windows,), (dm,),
+                         reduce_impl == "montgomery", tpi)
+
+
+def modexp_fixed_pair_cuda(bases, windows, dms,
+                           tpi: int | None = None) -> tuple:
+    """Both CRT halves in one Montgomery launch of the
+    ``csrc/modexp_fixed.cu`` kernel: ``bases[h] ^ e_h mod dms[h]`` for
+    h = 0, 1, each exponent given by its windows.  The two moduli must
+    share their limb and word widths."""
+    (dp, dq), (wp, wq) = dms, windows
+    if (dp.L16, dp.L32) != (dq.L16, dq.L32) or dp.mp is None \
+            or dq.mp is None:
+        raise ValueError("modexp_fixed_pair needs two odd moduli of one "
+                         "width")
+    rows = []
+    for name, b, d, w in (("p", bases[0], dp, wp), ("q", bases[1], dq, wq)):
+        b = b.to(torch.int32).contiguous()
+        build.require_rows(f"modexp_fixed_pair base_{name}", b, b.shape[0],
+                           d.L16)
+        _check_windows(w)
+        rows.append(b)
+    Bp = rows[0].shape[0]
+    out = _launch_fixed(torch.cat(rows), Bp, windows, dms, True, tpi)
+    return out[:Bp], out[Bp:]
 
 
 def modexp_limbs(base: torch.Tensor, exp: torch.Tensor, dm: cm.DeviceModulus,
@@ -121,3 +177,15 @@ def modexp_fixed_limbs(base: torch.Tensor, windows: Sequence[int],
     if base.device.type == "cuda":
         return modexp_fixed_cuda(base, windows, dm, reduce_impl)
     return modexp_fixed_plain(base, windows, dm, reduce_impl)
+
+
+def modexp_fixed_pair_limbs(bases, windows, dms, reduce_impls) -> tuple:
+    """Both CRT halves: one kernel launch on CUDA tensors when both run
+    Montgomery at one width with e > 0, else one ``modexp_fixed_limbs``
+    call per half (the plain versions on CPU tensors)."""
+    if bases[0].device.type == "cuda" and all(windows) \
+            and reduce_impls == ("montgomery", "montgomery") \
+            and (dms[0].L16, dms[0].L32) == (dms[1].L16, dms[1].L32):
+        return modexp_fixed_pair_cuda(bases, windows, dms)
+    return tuple(modexp_fixed_limbs(b, w, d, i)
+                 for b, w, d, i in zip(bases, windows, dms, reduce_impls))

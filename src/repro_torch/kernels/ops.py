@@ -32,7 +32,8 @@ from ..core import bigint as bi
 from . import common as cm
 from . import montgomery as mg
 from .limb_mulmod import mulmod_limbs
-from .modexp import METHODS, REDUCE_IMPLS, modexp_fixed_limbs, modexp_limbs
+from .modexp import (METHODS, REDUCE_IMPLS, modexp_fixed_limbs,
+                     modexp_fixed_pair_limbs, modexp_limbs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -230,3 +231,21 @@ def modexp_fixed(base16, e: int, pack: ModulusPack, device=None,
                            device=base.device)
     return modexp_fixed_limbs(base, mg.exp_windows(e), pack.on(base.device),
                               impl)
+
+
+def modexp_fixed_pair(bases, exps, packs, device=None,
+                      reduce_impl: str | None = None) -> tuple:
+    """:func:`modexp_fixed` over the two CRT halves of a Paillier
+    exponentiation: ``(bases[0]^exps[0] mod packs[0].m_int,
+    bases[1]^exps[1] mod packs[1].m_int)``.  On the card both halves share
+    one kernel launch when they run Montgomery at one width; the results
+    equal two :func:`modexp_fixed` calls."""
+    if min(exps) < 0:
+        raise ValueError("modexp_fixed requires a non-negative exponent; "
+                         "invert the base host-side first")
+    impls = tuple(_resolve_reduce(p, reduce_impl) for p in packs)
+    bp = _operand(bases[0], packs[0].L16, device)
+    bq = _same_device(_operand(bases[1], packs[1].L16, bp.device), bp)
+    return modexp_fixed_pair_limbs(
+        (bp, bq), tuple(mg.exp_windows(e) for e in exps),
+        tuple(p.on(bp.device) for p in packs), impls)

@@ -1,12 +1,21 @@
 """repro_torch CUDA kernels vs their plain PyTorch versions, on the card.
 
-Every instantiation of the three hand-written kernels (mulmod; modexp's
-four (reduction x window) bodies; modexp_fixed's two) is held against its
+Every body of the three hand-written kernels (mulmod; modexp's four
+(reduction x window) bodies; modexp_fixed's two) is held against its
 plain version on the same CUDA tensors and against Python ints, at small
 widths including an odd-byte modulus with full-width operands, and at
-ragged batch sizes, and a small protocol run on the card is held against
-the same run on the CPU.  These tests need an NVIDIA card and skip without
-one; on the card run ``python -m pytest -m cuda tests/test_torch_cuda.py``.
+ragged batch sizes.  The three cooperative Montgomery bodies (a group of
+threads per big integer) are also held, with zero tolerance, at widths
+k = 8, 16, 32, 63, 64 and 128 words (a random odd modulus and the
+top-word edge 2^{32k} - 1 at each; the 1000-bit odd-byte modulus at
+k = 32 and a 2000-bit one at k = 63, where k is not a multiple of the
+group), batches {0, 1, 77, one more than a block's integers, 192}, and
+exponents 0, 1 and one whose 4-bit windows take all 16 values; the
+two-half modexp_fixed launch (both CRT halves in one launch) is held
+against one plain call per half.  A small
+protocol run on the card is held against the same run on the CPU.  These
+tests need an NVIDIA card and skip without one; on the card run
+``python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
 import random
 
@@ -19,7 +28,7 @@ from repro_torch.core import protocol
 from repro_torch.core.quantization import QuantSpec
 from repro_torch.data.synthetic import make_lasso
 from repro_torch.obs.metrics import report_core
-from repro_torch.kernels import build, ops
+from repro_torch.kernels import build, geometry, ops
 from repro_torch.kernels import limb_mulmod as lm
 from repro_torch.kernels import modexp as mx
 
@@ -27,6 +36,11 @@ pytestmark = pytest.mark.cuda
 
 BITS = (24, 200, 1000, 2048)     # 24 and 1000 bits: odd byte lengths
 BATCHES = (1, 5, 130)
+MAIN_PATH_BODIES = ("mulmod", "modexp[montgomery,win4]",
+                    "modexp_fixed[montgomery]")
+# cooperative bodies: width k in words -> bits of its random odd modulus
+WIDTH_BITS = {8: 256, 16: 512, 32: 1000, 63: 2000, 64: 2048, 128: 4096}
+ALL_WINDOWS = 0xFEDCBA9876543210          # 4-bit windows 15, 14, ..., 0
 
 
 @pytest.fixture(scope="module")
@@ -108,9 +122,9 @@ def test_even_modulus_and_empty_batch_on_card(dev):
         [pow(x, 12345, m) for x in base]
     assert ops.mulmod(bt[:0], bt[:0], pack).shape == (0, pack.L16)
     assert bi.to_ints(ops.modexp_fixed(bt, 0, pack)) == [1] * 9
-    assert build.LAUNCHES["modexp"] == before["modexp"] + 1
-    assert build.LAUNCHES["modexp_fixed"] == before["modexp_fixed"] + 1
-    assert build.LAUNCHES["mulmod"] == before["mulmod"]
+    for body, n in build.LAUNCHES.items():    # even modulus: Barrett
+        assert n == before[body] + (body in ("modexp[barrett,win4]",
+                                             "modexp_fixed[barrett]")), body
 
 
 def test_protocol_on_card_equals_cpu_run(dev):
@@ -122,8 +136,123 @@ def test_protocol_on_card_equals_cpu_run(dev):
                                   cipher="gold", key_bits=128)
     build.reset_launches()
     on_card = protocol.run_protocol(inst.A, inst.y, cfg)
-    assert all(n > 0 for n in build.LAUNCHES.values()), build.LAUNCHES
+    for body in MAIN_PATH_BODIES:
+        assert build.LAUNCHES[body] > 0, build.LAUNCHES
     on_cpu = protocol.run_protocol(inst.A, inst.y, cfg, device="cpu")
     assert on_card.history.tobytes() == on_cpu.history.tobytes()
     assert report_core(on_card.stats) == report_core(on_cpu.stats)
     assert np.all(np.isfinite(on_card.history))
+
+
+def _width_modulus(k: int, kind: str) -> int:
+    if kind == "edge":                    # top word all ones: 2^{32k} - 1
+        return (1 << (32 * k)) - 1
+    return _odd_modulus(WIDTH_BITS[k])
+
+
+def _cooperative_batches(kernel: str) -> tuple:
+    per_block = geometry.BLOCK_THREADS[kernel] // geometry.TPI[kernel]
+    return (0, 1, 77, per_block + 1, 192)
+
+
+@pytest.mark.parametrize("k", sorted(WIDTH_BITS))
+@pytest.mark.parametrize("kind", ("random", "edge"))
+@pytest.mark.parametrize("B", _cooperative_batches("modexp"))
+@pytest.mark.parametrize("method", ("win4", "binary"))
+def test_cooperative_modexp_matches_plain_and_ints(dev, k, kind, B, method):
+    m = _width_modulus(k, kind)
+    pack = ops.pack_modulus(m)
+    assert pack.L32 == k
+    dm = pack.on(dev)
+    rng = random.Random(k * 31 + B)
+    base, bt = _rows(rng, B, pack.L16, dev)
+    exps, et = _rows(rng, B, 4, dev)
+    for i, e in enumerate((0, 1, ALL_WINDOWS)[:B]):
+        exps[i] = e
+        et[i] = torch.as_tensor(bi.from_ints([e], 4)[0], device=dev)
+    before = build.LAUNCHES[f"modexp[montgomery,{method}]"]
+    out = mx.modexp_cuda(bt, et, dm, method, "montgomery")
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[f"modexp[montgomery,{method}]"] == \
+        before + (B > 0)
+    assert torch.equal(out, mx.modexp_plain(bt, et, dm, method,
+                                            "montgomery"))
+    assert bi.to_ints(out) == [pow(x, e, m) for x, e in zip(base, exps)]
+
+
+@pytest.mark.parametrize("k", sorted(WIDTH_BITS))
+@pytest.mark.parametrize("kind", ("random", "edge"))
+@pytest.mark.parametrize("B", _cooperative_batches("modexp_fixed"))
+def test_cooperative_modexp_fixed_matches_plain_and_ints(dev, k, kind, B):
+    m = _width_modulus(k, kind)
+    pack = ops.pack_modulus(m)
+    assert pack.L32 == k
+    dm = pack.on(dev)
+    rng = random.Random(k * 37 + B)
+    base, bt = _rows(rng, B, pack.L16, dev)
+    for e in (1, ALL_WINDOWS, rng.getrandbits(128)):
+        windows = ops.mg.exp_windows(e)
+        out = mx.modexp_fixed_cuda(bt, windows, dm, "montgomery")
+        torch.cuda.synchronize()
+        assert torch.equal(out, mx.modexp_fixed_plain(bt, windows, dm,
+                                                      "montgomery")), e
+        assert bi.to_ints(out) == [pow(x, e, m) for x in base], e
+    # e = 0 is answered without a launch
+    before = build.LAUNCHES["modexp_fixed[montgomery]"]
+    assert bi.to_ints(ops.modexp_fixed(bt, 0, pack)) == [1] * B
+    assert build.LAUNCHES["modexp_fixed[montgomery]"] == before
+
+
+@pytest.mark.parametrize("kernel, tpi", [
+    (kernel, tpi) for kernel, shapes in sorted(geometry.SHAPES.items())
+    for tpi in sorted({t for t, _ in shapes})])
+def test_every_group_size_matches_plain_at_main_width(dev, kernel, tpi):
+    """The group sizes timed against the chosen one, at k = 64."""
+    m = _odd_modulus(2048)
+    pack = ops.pack_modulus(m)
+    dm = pack.on(dev)
+    rng = random.Random(tpi)
+    base, bt = _rows(rng, 77, pack.L16, dev)
+    if kernel == "modexp":
+        exps, et = _rows(rng, 77, 4, dev)
+        out = mx.modexp_cuda(bt, et, dm, "win4", "montgomery", tpi=tpi)
+        want = [pow(x, e, m) for x, e in zip(base, exps)]
+        plain = mx.modexp_plain(bt, et, dm, "win4", "montgomery")
+    else:
+        e = rng.getrandbits(2048)
+        windows = ops.mg.exp_windows(e)
+        out = mx.modexp_fixed_cuda(bt, windows, dm, "montgomery", tpi=tpi)
+        want = [pow(x, e, m) for x in base]
+        plain = mx.modexp_fixed_plain(bt, windows, dm, "montgomery")
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain)
+    assert bi.to_ints(out) == want
+
+
+@pytest.mark.parametrize("k, tpi", [(8, None), (63, None), (64, None),
+                                    (128, None), (63, 8), (64, 8)])
+@pytest.mark.parametrize("Bp, Bq", [(0, 77), (1, 1), (77, 5), (192, 192)])
+def test_modexp_fixed_pair_matches_plain_per_half(dev, k, Bp, Bq, tpi):
+    """One launch for both halves: a random odd and the edge modulus of
+    one width, exponents of different lengths (the shorter schedule is
+    padded), and with 8 threads per integer a warp that straddles the two
+    halves."""
+    moduli = (_width_modulus(k, "random") if k != 63
+              else _odd_modulus(32 * 63), _width_modulus(k, "edge"))
+    packs = [ops.pack_modulus(m) for m in moduli]
+    dms = tuple(p.on(dev) for p in packs)
+    rng = random.Random(k + 3 * Bp + Bq)
+    (bp, bpt), (bq, bqt) = _rows(rng, Bp, packs[0].L16, dev), \
+        _rows(rng, Bq, packs[1].L16, dev)
+    exps = (rng.getrandbits(128), ALL_WINDOWS)
+    windows = tuple(ops.mg.exp_windows(e) for e in exps)
+    before = build.LAUNCHES["modexp_fixed[montgomery]"]
+    xp, xq = mx.modexp_fixed_pair_cuda((bpt, bqt), windows, dms, tpi)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["modexp_fixed[montgomery]"] == before + 1
+    assert torch.equal(xp, mx.modexp_fixed_plain(bpt, windows[0], dms[0],
+                                                 "montgomery"))
+    assert torch.equal(xq, mx.modexp_fixed_plain(bqt, windows[1], dms[1],
+                                                 "montgomery"))
+    assert bi.to_ints(xp) == [pow(x, exps[0], moduli[0]) for x in bp]
+    assert bi.to_ints(xq) == [pow(x, exps[1], moduli[1]) for x in bq]

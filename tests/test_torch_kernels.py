@@ -27,7 +27,7 @@ from repro.core import bigint as rbi
 from repro.kernels import ops as rops
 from repro_torch.convert import limbs_from_numpy
 from repro_torch.core import bigint as bi
-from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import build, geometry, ops, ref
 from repro_torch.kernels import limb_mulmod as lm
 from repro_torch.kernels import modexp as mx
 
@@ -290,6 +290,146 @@ def test_cpu_tensors_take_the_plain_version_and_cuda_raises_without_card():
         mx.modexp_cuda(_port(a), _port(a[:, :1]), dm, "win4", "montgomery")
     with pytest.raises(ValueError, match="CUDA tensor"):
         mx.modexp_fixed_cuda(_port(a), (1, 2), dm, "montgomery")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        mx.modexp_fixed_pair_cuda((_port(a), _port(a)), ((1, 2), (3,)),
+                                  (dm, dm))
+    with pytest.raises(ValueError, match="one width"):
+        mx.modexp_fixed_pair_cuda(
+            (_port(a), _port(a)), ((1, 2), (3,)),
+            (dm, ops.pack_modulus(_moduli(256)["odd"]).on("cpu")))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             ops.mulmod(a, a, pack)             # numpy input defaults to cuda
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_leading_zero_windows_leave_the_fixed_ladder_unchanged(impl):
+    """The two-half launch pads the shorter schedule in front with zero
+    windows: 1^16 * table[0] = 1, so the result must not move."""
+    m = _moduli(256)["odd"]
+    pack = ops.pack_modulus(m)
+    dm = pack.on("cpu")
+    rng = random.Random(11)
+    base, b16 = _rows(rng, 5, pack.L16)
+    e = rng.getrandbits(200)
+    win = ops.mg.exp_windows(e)
+    padded = mx.modexp_fixed_plain(_port(b16), (0, 0, 0) + win, dm, impl)
+    assert torch.equal(padded, mx.modexp_fixed_plain(_port(b16), win, dm,
+                                                     impl))
+    assert bi.to_ints(padded) == [pow(x, e, m) for x in base]
+
+
+@pytest.mark.parametrize("Bp, Bq", [(0, 0), (0, 3), (5, 2)])
+def test_modexp_fixed_pair_equals_two_singles(Bp, Bq):
+    """Both CRT halves in one call, exponents of different lengths and 0,
+    equal one modexp_fixed per half (on the CPU: their plain versions)."""
+    p2, q2 = _moduli(512)["odd"], _moduli(512)["ones"]
+    packs = (ops.pack_modulus(p2), ops.pack_modulus(q2))
+    rng = random.Random(Bp * 7 + Bq)
+    (bp, bp16), (bq, bq16) = _rows(rng, Bp, packs[0].L16), \
+        _rows(rng, Bq, packs[1].L16)
+    for exps in ((rng.getrandbits(500), rng.getrandbits(90)), (0, 65537)):
+        xp, xq = ops.modexp_fixed_pair((_port(bp16), _port(bq16)), exps,
+                                       packs)
+        assert bi.to_ints(xp) == [pow(x, exps[0], p2) for x in bp]
+        assert bi.to_ints(xq) == [pow(x, exps[1], q2) for x in bq]
+        assert torch.equal(xp, ops.modexp_fixed(_port(bp16), exps[0],
+                                                packs[0]))
+    with pytest.raises(ValueError, match="non-negative"):
+        ops.modexp_fixed_pair((_port(bp16), _port(bq16)), (-1, 3), packs)
+
+
+# ---------------------------------------------------------------------------
+# launch geometry (computed on the host, passed to every C launcher)
+# ---------------------------------------------------------------------------
+
+# the main path's batches: 0 and 1, Nk = 192 (one encryption's half), 384
+# (N = 1,152), the product tree's top level Nk^2/2 and an edge's matvec Nk^2
+MAIN_BATCHES = (0, 1, 192, 384, 18_432, 36_864)
+
+
+@pytest.mark.parametrize("body", geometry.BODIES)
+def test_launch_geometry_covers_every_width(body):
+    """For every width 1..MAX_WORDS and main-path batch: an instantiated
+    shape that holds k words, whole warps, blocks that cover B exactly
+    once, and shared memory and threads within Hopper's per-block limits."""
+    kernel = body.split("[")[0]
+    cooperative = kernel != "mulmod" and "barrett" not in body
+    for k in range(1, geometry.MAX_WORDS + 1):
+        for B in MAIN_BATCHES:
+            g = geometry.launch_geometry(body, B, k)
+            assert g.threads % 32 == 0 and g.threads <= geometry.MAX_THREADS
+            assert g.smem <= geometry.MAX_SMEM_BYTES
+            assert g.blocks * g.per_block >= B > (g.blocks - 1) * g.per_block
+            if cooperative:
+                assert g.tpi == geometry.TPI[kernel]
+                assert (g.tpi, g.words) in geometry.SHAPES[kernel]
+                assert g.tpi * g.words >= k > g.tpi * g.words // 2 or \
+                    g.words == 1
+                table = body != "modexp[montgomery,binary]"
+                assert g.smem == (16 * g.words * g.threads * 4 if table
+                                  else 0)
+            else:
+                assert (g.tpi, g.per_block, g.smem) == (1, 32, 0)
+
+
+def test_launch_geometry_main_path_shapes():
+    """The main path's launches: a warp per p^2 residue in its own block
+    for modexp_fixed, eight threads per residue for modexp."""
+    g = geometry.launch_geometry("modexp_fixed[montgomery]", 192, 64)
+    assert (g.tpi, g.words, g.per_block, g.blocks, g.smem) == \
+        (32, 2, 1, 192, 4096)
+    g = geometry.launch_geometry("modexp[montgomery,win4]", 36_864, 64)
+    assert (g.tpi, g.words, g.per_block, g.blocks, g.smem) == \
+        (8, 8, 8, 4608, 32768)
+    g = geometry.launch_geometry("mulmod", 18_432, 128)
+    assert (g.tpi, g.per_block, g.blocks) == (1, 32, 576)
+    for kernel, shapes in geometry.SHAPES.items():   # the timed candidates
+        body = geometry.body_name(kernel)
+        for tpi in {t for t, _ in shapes}:
+            g = geometry.launch_geometry(body, 192, 64, tpi=tpi)
+            assert g.tpi == tpi and tpi * g.words == 64
+
+
+@pytest.mark.parametrize("body, B, k, tpi, match", [
+    ("modexp_fixed[montgomery]", 5, 0, None, "outside"),
+    ("modexp_fixed[montgomery]", 5, geometry.MAX_WORDS + 1, None, "outside"),
+    ("mulmod", 5, 0, None, "outside"),
+    ("modexp[montgomery,win4]", -1, 64, None, "negative batch"),
+    ("modexp[montgomery,win4]", 5, 64, 32, "no instantiation"),
+    ("modexp_fixed[montgomery]", 5, 128, 8, "no instantiation"),
+    ("modexp[barrett,win4]", 5, 64, 8, "one thread"),
+    ("modexp[sideways,win4]", 5, 64, None, "unknown kernel body"),
+])
+def test_launch_geometry_rejects(body, B, k, tpi, match):
+    with pytest.raises(ValueError, match=match):
+        geometry.launch_geometry(body, B, k, tpi)
+
+
+@pytest.mark.parametrize("body, threads, match, fits_at_k1", [
+    ("modexp[montgomery,win4]", 1024, "shared memory", True),
+    ("modexp_fixed[montgomery]", 2048, "threads per block", False),
+])
+def test_launch_geometry_rejects_blocks_over_the_limits(
+        monkeypatch, body, threads, match, fits_at_k1):
+    """Wider blocks than the chosen ones: 16 entries x 16 words x 1,024
+    threads x 4 bytes is 1 MB of table at 128 words (64 KB at one word);
+    2,048 threads is over the limit at any width."""
+    monkeypatch.setitem(geometry.BLOCK_THREADS, body.split("[")[0], threads)
+    with pytest.raises(ValueError, match=match):
+        geometry.launch_geometry(body, 192, geometry.MAX_WORDS)
+    if fits_at_k1:
+        assert geometry.launch_geometry(body, 192, 1).threads == threads
+    else:
+        with pytest.raises(ValueError, match=match):
+            geometry.launch_geometry(body, 192, 1)
+
+
+def test_body_names_are_the_launch_counter_keys():
+    assert set(build.LAUNCHES) == set(geometry.BODIES)
+    names = {geometry.body_name("mulmod")}
+    for impl in ("montgomery", "barrett"):
+        names.add(geometry.body_name("modexp_fixed", impl))
+        for method in ("win4", "binary"):
+            names.add(geometry.body_name("modexp", impl, method))
+    assert names == set(geometry.BODIES)
