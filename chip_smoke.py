@@ -9,29 +9,36 @@ package, and:
 2. builds the three hand-written kernels from ``src/repro_torch/kernels/
    csrc`` (one ``nvcc`` per source, in parallel) and prints the build time
    and each instantiation's registers, stack frame and spills; the
-   cooperative (group-per-integer) instantiations must show no spills
-   and a stack frame under 256 bytes;
+   cooperative (group-per-integer) instantiations (every one but the
+   Barrett bodies of modexp) must show no spills and a stack frame under
+   256 bytes;
 3. holds every kernel body (mulmod; modexp's four bodies; modexp_fixed's
    two) against its plain PyTorch version on the card and against Python
    ints, at the main path's widths (2048-bit p^2/q^2, 4096-bit n^2), an
    odd-byte 1000-bit width with full-width operands, and batches {0, 1,
-   ragged}; then, at the main path's own (large) batches, times each body
-   with CUDA events beside its plain version on the same inputs and holds
-   the two outputs against each other and against Python ints on a
-   sample; times the group-size candidates of the two cooperative bodies
-   on the same inputs and holds their outputs the same way, and times the
-   main path's two-half modexp_fixed launch (p^2 and q^2 rows in one
-   launch) against two launches;
+   ragged}; then, at the main path's own batches, times each body (its
+   kernel's device time from ``torch.profiler``, and CUDA events per call,
+   which also hold the wrapper's host time) beside its plain version on
+   the same inputs and holds the two outputs against each other and
+   against Python ints on a sample (mulmod at each of its main-path
+   shapes: B = 192 on p^2 and on n^2, each level of the product tree on
+   n^2 and B = 36,864 on p^2); times
+   the group-size candidates of the cooperative bodies on the same inputs
+   and holds their outputs the same way, and times the main path's
+   two-half modexp_fixed launch (p^2 and q^2 rows in one launch) against
+   two launches;
 4. runs the main path — gold-cipher private LASSO at the paper's Fig. 6
    key and quantizer (2048-bit keys, Delta = 1e15, K = 3, rho = lam = 1)
    with the scale cut to N = 576, M = 64, 3 iterations — and the plain
    arm on the same instance; the histories must be equal bit for bit, a
    sample of the first round's ciphertexts must equal the scalar
    ``encrypt_crt`` on a replayed rng, and every kernel body of the path
-   must have been launched during the gold run;
+   must have been launched during the gold run (launches are also
+   counted per batch and width);
 5. splits one more main-path round by device time per kernel
    (``torch.profiler``) and the device's idle share, with CUDA events
-   around each kernel wrapper giving each kernel's time by batch size;
+   around each kernel wrapper giving each kernel's time by batch size and
+   width;
 6. runs one round at N = 1,152 (Nk = 384 per edge) against its plain arm,
    to show how a round scales with Nk;
 7. prints the kernel table as one JSON line, then as its last line
@@ -85,7 +92,9 @@ BODY_SOURCES = {
 }
 MAIN_PATH_BODIES = ("mulmod", "modexp[montgomery,win4]",
                     "modexp_fixed[montgomery]")
-# cooperative instantiations must keep every row in registers
+# cooperative instantiations (all but the one-thread Barrett bodies of
+# modexp) must keep every row in registers
+ONE_THREAD_KERNELS = ("modexp_barrett_kernel",)
 MAX_COOP_STACK = 256
 
 
@@ -155,17 +164,21 @@ def build_kernels(build):
     log(f"build: {time.perf_counter() - t0:.2f} s ({len(logs)} sources "
         f"compiled)")
     rows = ptxas_report(logs)
-    coop = 0
+    coop = set()
     for name, r in sorted(rows.items()):
         log(f"  ptxas {name}: {r.get('registers')} registers, "
             f"{r.get('stack')} B stack, {r.get('spill_stores')} B spill "
             f"stores, {r.get('spill_loads')} B spill loads")
-        if "_mont_kernel" in name:
-            coop += 1
+        if not name.startswith(ONE_THREAD_KERNELS):
+            coop.add(name.split("<")[0])
             assert r.get("spill_stores") == 0 and r.get("spill_loads") == 0 \
                 and r.get("stack", MAX_COOP_STACK) < MAX_COOP_STACK, \
                 f"{name} keeps rows in local memory: {r}"
-    assert coop > 0, "no cooperative instantiation in the ptxas report"
+    assert coop == {"mulmod_kernel", "modexp_mont_kernel",
+                    "modexp_fixed_kernel"}, \
+        f"cooperative kernels in the ptxas report: {sorted(coop)}"
+    assert any(n.startswith("modexp_fixed_kernel") and n.endswith(",false>")
+               for n in rows), "no cooperative modexp_fixed[barrett]"
 
 
 # ---------------------------------------------------------------------------
@@ -225,6 +238,40 @@ def time_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps, result
+
+
+def kernel_symbol(body):
+    """The CUDA kernel template a body's launches run."""
+    if body == "mulmod":
+        return "mulmod_kernel"
+    if body.startswith("modexp_fixed"):
+        return "modexp_fixed_kernel"
+    return "modexp_mont_kernel" if "montgomery" in body \
+        else "modexp_barrett_kernel"
+
+
+def kernel_ms(fn, reps, symbol):
+    """Device milliseconds per call of the kernel ``symbol`` that ``fn``
+    launches once per call (``torch.profiler``, after a warm-up call), the
+    CUDA-event milliseconds per call of ``fn`` (which include the host's
+    gaps between launches: at small batches the wrapper's own time), and
+    the warm-up call's result.  Where the profiler shows no device time
+    the event time stands for both."""
+    from torch.profiler import ProfilerActivity, profile
+    event_ms, result = time_ms(fn, reps)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and symbol in e.name]
+    if not us:
+        return event_ms, event_ms, result
+    # the profiler may drop an event of a long run: average those it kept
+    assert len(us) <= reps, (symbol, len(us), reps)
+    return sum(us) / 1e3 / len(us), event_ms, result
 
 
 def compare(bi, name, got, plain, want_ints):
@@ -306,37 +353,44 @@ def time_kernels(key, packs, bi, geometry, mg, lm, mx, dev):
     candidates of the cooperative bodies run on the same inputs and are
     held against the same plain output."""
     rng = random.Random(SEED + 2)
-    out, sweep = {}, []
+    out, sweep, shapes = {}, [], []
 
     def rows(B, L):
         ints = [rng.getrandbits(16 * L) for _ in range(B)]
         return ints, torch.as_tensor(bi.from_ints(ints, L), device=dev)
 
     def measure(name, kernel, plain, reps, want, shape, products, B,
-                nbytes):
-        ms, got = time_ms(kernel, reps)
+                nbytes, k):
+        ms, event_ms, got = kernel_ms(kernel, reps, kernel_symbol(name))
         plain_ms, ref = time_ms(plain, 1)
         bnd, by = bound_ms(products, B, nbytes)
-        out[name] = dict(shape=shape, ms=ms, plain_ms=plain_ms,
-                         max_abs_err=compare(bi, name, got, ref, want),
-                         bound_ms=bnd, bound_by=by)
-        log(f"  {name} {shape}: {ms:.3f} ms (plain {plain_ms:.1f} ms, "
-            f"bound {bnd:.4f} ms), equal")
+        row = dict(shape=shape, B=B, k=k, ms=ms, event_ms=event_ms,
+                   plain_ms=plain_ms,
+                   max_abs_err=compare(bi, name, got, ref, want),
+                   bound_ms=bnd, bound_by=by)
+        out.setdefault(name, row)              # the body's first shape
+        shapes.append(dict(body=name, **row))
+        log(f"  {name} {shape}: {ms:.4f} ms on the device, {event_ms:.4f} "
+            f"ms per call (plain {plain_ms:.1f} ms, bound {bnd:.4f} ms), "
+            f"equal")
         return ref
 
     def candidates(name, launch, ref, want, reps, B, k):
         """Every instantiated group size of ``name``'s kernel at B x k."""
         kernel = name.split("[")[0]
+        chosen = geometry.launch_geometry(name, B, k).tpi
         for tpi in sorted({t for t, _ in geometry.SHAPES[kernel]}):
             g = geometry.launch_geometry(name, B, k, tpi)
-            ms, got = time_ms(lambda: launch(tpi), reps)
+            ms, event_ms, got = kernel_ms(lambda: launch(tpi), reps,
+                                          kernel_symbol(name))
             compare(bi, f"{name} tpi={tpi}", got, ref, want)
             sweep.append(dict(body=name, B=B, k=k, tpi=tpi, words=g.words,
                               per_block=g.per_block, blocks=g.blocks,
-                              smem=g.smem, ms=ms,
-                              chosen=tpi == geometry.TPI[kernel]))
-            log(f"  {name} tpi={tpi} ({g.words} words per thread, "
-                f"{g.blocks} blocks of {g.threads}): {ms:.3f} ms, equal")
+                              smem=g.smem, ms=ms, event_ms=event_ms,
+                              chosen=tpi == chosen))
+            log(f"  {name} B={B} k={k} tpi={tpi} ({g.words} words per "
+                f"thread, {g.blocks} blocks of {g.threads}): {ms:.4f} ms, "
+                f"equal")
 
     def time_pair(ref_p, bpt, win_p, dm_p, want_p):
         """Both CRT halves of the main path's fixed exponentiation in one
@@ -361,16 +415,26 @@ def time_kernels(key, packs, bi, geometry, mg, lm, mx, dev):
             f"{two_ms:.3f} ms; equal")
         return dict(pair_ms=pair_ms, two_launches_ms=two_ms, B=2 * NK)
 
-    # mulmod: the first level of the n^2 product tree, Nk^2 / 2 rows
-    pack = packs["n2"]
-    dm = pack.on(dev)
-    B = NK * NK // 2
-    (a, at), (b, bt) = rows(B, pack.L16), rows(B, pack.L16)
-    measure("mulmod", lambda: lm.mulmod_cuda(at, bt, dm),
-            lambda: lm.mulmod_plain(at, bt, dm), 10,
-            [(x * y) % pack.m_int for x, y in zip(a[:4], b[:4])],
-            f"B={B} n^2 {pack.L32} words",
-            word_products("mulmod", pack.L32), B, 3 * B * pack.L16 * 4)
+    # mulmod at each main-path shape: the first level of the n^2 product
+    # tree (Nk^2 / 2 rows) first, the shape the kernel table has used from
+    # the start; one encryption's or sum's Nk rows on n^2; the CRT and
+    # half-space multiplies' Nk rows on p^2; an edge's matvec reduced into
+    # p^2; the tree's other levels on n^2, where the card goes from nearly
+    # empty to full
+    for width, B in (("n2", NK * NK // 2), ("n2", NK), ("p2", NK),
+                     ("p2", NK * NK), ("n2", 3 * NK), ("n2", 6 * NK),
+                     ("n2", 12 * NK), ("n2", 24 * NK), ("n2", 48 * NK)):
+        pack = packs[width]
+        dm = pack.on(dev)
+        (a, at), (b, bt) = rows(B, pack.L16), rows(B, pack.L16)
+        want = [(x * y) % pack.m_int for x, y in zip(a[:4], b[:4])]
+        ref = measure("mulmod", lambda: lm.mulmod_cuda(at, bt, dm),
+                      lambda: lm.mulmod_plain(at, bt, dm), 20, want,
+                      f"B={B} {width[0]}^2 {pack.L32} words",
+                      word_products("mulmod", pack.L32), B,
+                      3 * B * pack.L16 * 4, pack.L32)
+        candidates("mulmod", lambda tpi: lm.mulmod_cuda(at, bt, dm, tpi=tpi),
+                   ref, want, 20, B, pack.L32)
     # modexp: one edge's matvec in one half space, Nk^2 elements, 4-limb
     # (64-bit) exponents as Gamma_2 codes of Delta = 1e15 need
     pack = packs["p2"]
@@ -389,7 +453,7 @@ def time_kernels(key, packs, bi, geometry, mg, lm, mx, dev):
                 f"B={B} p^2 {pack.L32} words, 64-bit exps",
                 word_products("modexp", pack.L32, exp_bits=64, mont=mont,
                               win4=method == "win4"),
-                B, B * (2 * pack.L16 + 4) * 4)
+                B, B * (2 * pack.L16 + 4) * 4, pack.L32)
             if name == "modexp[montgomery,win4]":
                 candidates(name, lambda tpi: mx.modexp_cuda(
                     bt, et, dm, "win4", "montgomery", tpi=tpi),
@@ -405,17 +469,16 @@ def time_kernels(key, packs, bi, geometry, mg, lm, mx, dev):
         name = f"modexp_fixed[{impl}]"
         ref = measure(name, lambda: mx.modexp_fixed_cuda(bt, win, dm, impl),
                       lambda: mx.modexp_fixed_plain(bt, win, dm, impl),
-                      10 if mont else 3, want,
+                      10, want,
                       f"B={B} p^2 {pack.L32} words, {len(win)} windows",
                       word_products("modexp_fixed", pack.L32,
                                     exp_bits=4 * len(win), mont=mont),
-                      B, 2 * B * pack.L16 * 4 + 4 * len(win))
+                      B, 2 * B * pack.L16 * 4 + 4 * len(win), pack.L32)
+        candidates(name, lambda tpi: mx.modexp_fixed_cuda(
+            bt, win, dm, impl, tpi=tpi), ref, want, 10, B, pack.L32)
         if mont:
-            candidates(name, lambda tpi: mx.modexp_fixed_cuda(
-                bt, win, dm, "montgomery", tpi=tpi), ref, want, 10, B,
-                pack.L32)
             pair = time_pair(ref, bt, win, dm, want)
-    return out, sweep, pair
+    return out, sweep, pair, shapes
 
 
 # ---------------------------------------------------------------------------
@@ -464,6 +527,7 @@ def run_main_path(protocol, gold, bi, build, QuantSpec, make_lasso):
             inst.A, inst.y, lasso_config(protocol, QuantSpec, "gold", ITERS))
         wall = time.perf_counter() - t0
         launches = dict(build.LAUNCHES)
+        shape_launches = dict(build.SHAPE_LAUNCHES)
     finally:
         protocol.make_box = real_make_box
     plain_res = protocol.run_protocol(
@@ -490,7 +554,7 @@ def run_main_path(protocol, gold, bi, build, QuantSpec, make_lasso):
                     for m, r in zip(ms[:4], rs[:4])]
             assert got == want, f"ciphertext mismatch in call {idx}"
             checked += len(got)
-    return gold_res, wall, launches, checked
+    return gold_res, wall, launches, shape_launches, checked
 
 
 def _kernel_group(name):
@@ -529,8 +593,10 @@ def time_split(protocol, lm, mx, QuantSpec, make_lasso, first_row,
             result = real(*args, **kwargs)
             stop.record()
             rows = args[0] if isinstance(args[0], torch.Tensor) \
-                else args[0][0]                # a pair: B per half
-            records.append((label, int(rows.shape[0]), start, stop))
+                else args[0][0]                # a pair: B and k per half
+            dm = args[2] if not isinstance(args[2], tuple) else args[2][0]
+            records.append((label, int(rows.shape[0]), dm.L32, start,
+                            stop))
             return result
         setattr(mod, attr, wrapper)
         return mod, attr, real
@@ -568,9 +634,9 @@ def time_split(protocol, lm, mx, QuantSpec, make_lasso, first_row,
     torch.cuda.synchronize()
     round_ms = 1e3 * res.stats["seconds"]["rounds"][0]
     by_shape = defaultdict(lambda: [0, 0.0])
-    for label, B, start, stop in records:
-        by_shape[(label, B)][0] += 1
-        by_shape[(label, B)][1] += start.elapsed_time(stop)
+    for label, B, k, start, stop in records:
+        by_shape[(label, B, k)][0] += 1
+        by_shape[(label, B, k)][1] += start.elapsed_time(stop)
     device = defaultdict(lambda: [0, 0.0])
     plain_names = defaultdict(float)
     for name, us in (traces[0] if traces else []):
@@ -582,7 +648,7 @@ def time_split(protocol, lm, mx, QuantSpec, make_lasso, first_row,
     busy_ms = sum(ms for _, ms in device.values())
     profiler_saw_device = busy_ms > 0
     if not profiler_saw_device:                # events: our kernels only
-        for (label, _), (n, ms) in by_shape.items():
+        for (label, _, _), (n, ms) in by_shape.items():
             device[label][0] += n
             device[label][1] += ms
         busy_ms = sum(ms for _, ms in device.values())
@@ -597,8 +663,8 @@ def time_split(protocol, lm, mx, QuantSpec, make_lasso, first_row,
         "top_plain_torch_kernels_ms": dict(sorted(
             plain_names.items(), key=lambda kv: -kv[1])[:6]),
         "event_ms_by_shape": [
-            {"kernel": label, "B": B, "launches": n, "ms": ms}
-            for (label, B), (n, ms) in sorted(by_shape.items())],
+            {"kernel": label, "B": B, "k": k, "launches": n, "ms": ms}
+            for (label, B, k), (n, ms) in sorted(by_shape.items())],
     }
     return split
 
@@ -637,14 +703,14 @@ def main():
     log("kernels vs plain versions on the card:")
     packs = check_kernels(key, bi, ops, mg, lm, mx, dev)
     log("kernels vs plain versions at main-path shapes, timed:")
-    times, sweep, pair = time_kernels(key, packs, bi, geometry, mg, lm, mx,
-                                      dev)
+    times, sweep, pair, shapes = time_kernels(key, packs, bi, geometry, mg,
+                                              lm, mx, dev)
     log("group sizes: " + json.dumps(sweep))
     log("two-half launch: " + json.dumps(pair))
 
     log(f"main path: gold LASSO, {KEY_BITS}-bit key, Delta={DELTA:g}, "
         f"K={K}, N={N}, M={M}, iters={ITERS}")
-    res, wall, launches, checked = run_main_path(
+    res, wall, launches, shape_launches, checked = run_main_path(
         protocol, gold, bi, build, QuantSpec, make_lasso)
     secs = res.stats["seconds"]
     log(f"  wall {wall:.2f} s; init {secs['init']:.3f} s, share "
@@ -652,6 +718,9 @@ def main():
         + ", ".join(f"{s:.4f}" for s in secs["rounds"]) + " s")
     log(f"  history equals the plain arm bit for bit; {checked} sampled "
         f"ciphertexts equal scalar encrypt_crt; launches {launches}")
+    log("  launches by shape: " + json.dumps(
+        [{"body": body, "B": B, "k": k, "launches": n}
+         for (body, B, k), n in sorted(shape_launches.items())]))
 
     log("time split of one main-path round (torch.profiler):")
     split = time_split(protocol, lm, mx, QuantSpec, make_lasso,
@@ -668,13 +737,23 @@ def main():
     for body in geometry.BODIES:
         t = times[body]
         source, replaces = BODY_SOURCES[body]
-        kernels.append({
+        entry = {
             "name": body, "route": "cuda", "source": f"{CSRC}/{source}",
             "replaces": replaces, "launches": launches[body],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
-            "shape": t["shape"]})
+            "shape": t["shape"]}
+        timed = [r for r in shapes if r["body"] == body]
+        if len(timed) > 1:                     # each main-path shape
+            entry["shapes"] = [
+                {key: r[key] for key in ("B", "k", "ms", "event_ms",
+                                         "plain_ms", "bound_ms", "bound_by",
+                                         "max_abs_err")}
+                | {"launches": shape_launches.get((body, r["B"], r["k"]),
+                                                  0)}
+                for r in timed]
+        kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

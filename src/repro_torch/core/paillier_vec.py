@@ -167,7 +167,7 @@ def _reduce_into(c: torch.Tensor, pack: ops.ModulusPack) -> torch.Tensor:
     c = bi.fit(c, n_chunks * Lp)
     base = (1 << (16 * Lp)) % pack.m_int
     base_l = _row(bi.from_int(base, Lp), c)
-    one = _one(Lp, c)
+    one = _row(bi.from_int(1, Lp), c)
     m_pad = bi.fit(_row(pack.m16, c), Lp + 1)
     acc = torch.zeros((B, Lp), dtype=torch.int32, device=c.device)
     for i in range(n_chunks - 1, -1, -1):

@@ -8,12 +8,14 @@ hash of the sources and flags, so a later process loads them without
 rebuilding and an edited source rebuilds.  Nothing here runs at import:
 this module imports on machines without a card or a CUDA toolkit.
 
-Launch counts: each kernel wrapper adds one to ``LAUNCHES[body]`` where it
-launches its kernel, and nowhere else; the keys are the seven kernel
-bodies of ``geometry.BODIES``.
+Launch counts: each kernel wrapper calls :func:`count_launch` where it
+launches its kernel, and nowhere else: one more in ``LAUNCHES[body]`` (the
+keys are the seven kernel bodies of ``geometry.BODIES``) and in
+``SHAPE_LAUNCHES[(body, B, k)]`` (batch and width in 32-bit words).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -31,7 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 NVCC_TIMEOUT_S = 900
 
-_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+_P, _I, _U, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
+                  ctypes.c_longlong)
 #: the launch geometry every launcher takes: threads per integer, words
 #: per thread, threads per block, blocks, dynamic shared memory bytes
 _GEOM = (_I, _I, _I, _I, _I)
@@ -39,7 +42,8 @@ _GEOM = (_I, _I, _I, _I, _I)
 _HALF = (_P, _P, _P, _P, _U)
 #: kernel name -> (exported C function, its argument types)
 KERNELS = {
-    "mulmod": ("mulmod_launch", (_P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P)),
+    "mulmod": ("mulmod_launch",
+               (_P, _L, _P, _L, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P)),
     "modexp": ("modexp_launch",
                (_P, _P, _P, _I, _I, _I, _P, _P, _P, _U, _I, _I, _I, *_GEOM,
                 _P)),
@@ -48,9 +52,10 @@ KERNELS = {
                       _P)),
 }
 
-#: launches per kernel body (``geometry.BODIES``), bumped by the wrappers;
-#: reset with reset_launches()
+#: launches per kernel body (``geometry.BODIES``), and per (body, batch,
+#: width in words), bumped by the wrappers; reset with reset_launches()
 LAUNCHES = dict.fromkeys(geometry.BODIES, 0)
+SHAPE_LAUNCHES: collections.Counter = collections.Counter()
 
 _FUNCS: dict = {}
 _LOCK = threading.Lock()
@@ -59,6 +64,13 @@ _LOCK = threading.Lock()
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    SHAPE_LAUNCHES.clear()
+
+
+def count_launch(body: str, B: int, k: int) -> None:
+    """One launch of ``body`` over B integers of k words."""
+    LAUNCHES[body] += 1
+    SHAPE_LAUNCHES[(body, B, k)] += 1
 
 
 def nvcc_path() -> str:

@@ -5,60 +5,82 @@
 // Barrett with two more convolutions).
 //
 // Bound on this card: 32-bit integer multiply-adds.  Per element a k-word
-// product is k^2 word products; Barrett needs the upper k + 1 words of
-// q1 * mu ((k+1)^2 - k(k-1)/2 word products) and the low k + 1 words of
-// q3 * m (about k(k+1)/2 + k), and each 32x32->64-bit word product is two
-// IMAD results (low and high word).  At the main path's n^2 width (k =
-// 128) that is about 66k IMADs per element against 1.5 KB of operand
-// traffic, so the kernel is far on the compute side of the card's
-// roofline.  This kernel forms all of q1 * mu.
+// product is k^2 word products; Barrett needs at least the upper k + 1
+// words of q1 * mu ((k+1)^2 - k(k-1)/2 word products) and the low k + 1
+// words of q3 * m (about k(k+1)/2 + k), two IMAD results per word
+// product.  At the main path's n^2 width (k = 128) that is about 66k IMADs
+// per element against 1.5 KB of operand traffic: far on the compute side
+// of the card's roofline.  Most of the main path's launches are small
+// (B = 192 for the ciphertext sum, the blinding, the CRT recombination and
+// the reductions into the half spaces), and there what bounds a launch in
+// practice is the latency of one element's chain of dependent products.
 //
-// Design: one thread per element, 32-bit words (the reference's radix 256
-// was forced by the TPU's missing 64-bit integer path; Hopper has 64-bit
-// products), modulus and mu broadcast from shared memory, operands and
-// scratch in per-thread local rows.  Barrett is exact for any a * b <
-// 2^{64k}, so full-width operands that exceed m (paillier_vec._reduce_into
-// feeds such chunks) reduce correctly; operands are never cut to the
-// modulus width.  The ragged batch edge is masked in the kernel.
+// Design: a group of TPI threads per element (limbs.cuh barrett_mul),
+// each lane holding NW = ceil(k / TPI) words, rounded up to a power of
+// two, of a, b, m, mu and the running sums in registers: the element's
+// latency is about 3k + 2 scan steps of NW multiply-adds each instead of
+// one thread's ~3k^2 dependent word products through local memory.  The
+// scans do all of q1 * mu and all of q3 * m, about 1.5 times the least
+// work.  32-bit words (the reference's radix 256 was forced by the TPU's
+// missing 64-bit integer path).  Barrett is exact for any a * b <
+// 2^{64k}, odd or even m, so full-width operands that exceed m
+// (paillier_vec._reduce_into feeds such chunks) reduce correctly; operands
+// are never cut to the modulus width.  a and b are read with row strides,
+// so a column slice needs no copy and a constant b is one row read by
+// every group (stride 0).  Groups past the batch edge run on a zero row
+// and store nothing, so every shuffle sees the full warp.
 #include "limbs.cuh"
 
 using namespace limbs;
 
-__global__ void mulmod_kernel(const int32_t* __restrict__ a,
-                              const int32_t* __restrict__ b,
+template <int TPI, int NW>
+__global__ void mulmod_kernel(const int32_t* __restrict__ a, long long sa,
+                              const int32_t* __restrict__ b, long long sb,
                               int32_t* __restrict__ out, int B, int l16,
                               const int32_t* __restrict__ m16,
                               const int32_t* __restrict__ mu16, int k) {
-  __shared__ u32 sm[MAXW];
-  __shared__ u32 smu[MAXW + 1];
-  load_shared(m16, 2 * k, sm, k);
-  load_shared(mu16, 2 * (k + 1), smu, k + 1);
-  __syncthreads();
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= B) return;
-
-  u32 aw[MAXW], bw[MAXW], x[2 * MAXW], q[2 * MAXW + 2], r2[MAXW + 1],
-      r[MAXW + 1];
-  load_row(a + (size_t)e * l16, l16, aw, k);
-  load_row(b + (size_t)e * l16, l16, bw, k);
-  mul(aw, k, bw, k, x);
-  barrett(x, sm, smu, k, q, r2, r);
-  store_row(r, l16, out + (size_t)e * l16);
+  const int e = (int)((blockIdx.x * blockDim.x + threadIdx.x) / TPI);
+  const bool live = e < B;
+  const long long row = live ? e : 0;
+  u32 m[NW], mu[NW], x[NW], y[NW], muH;
+  group_load<TPI, NW>(m16, 2 * k, k, true, m);
+  group_load_mu<TPI, NW>(mu16, k, mu, muH);
+  group_load<TPI, NW>(a + row * sa, l16, k, live, x);
+  group_load<TPI, NW>(b + row * sb, l16, k, live, y);
+  barrett_mul<TPI, NW>(x, y, m, mu, muH, k, x);
+  if (live) group_store<TPI, NW>(x, l16, out + (size_t)e * l16);
 }
 
-// a, b, out: (B, l16) int32 radix-2^16 rows; m16: 2k limbs; mu16: 2(k+1)
-// limbs; threads and blocks: the launch geometry (one thread per
-// element, geometry.launch_geometry).  Returns the CUDA error of the
+// (threads per element, words per thread) of every instantiation: each
+// timed group size at every width up to 128 words.  Mirrors
+// repro_torch.kernels.geometry.SHAPES["mulmod"].
+#define MULMOD_SHAPES(X)                                               \
+  X(32, 1) X(32, 2) X(32, 4) X(16, 1) X(16, 2) X(16, 4) X(16, 8) X(8, 1) \
+  X(8, 2) X(8, 4) X(8, 8) X(8, 16)
+
+// a, b: (B, l16) int32 radix-2^16 rows, row i at a + i * sa and b + i * sb
+// (sb = 0: one row b for every a); out: (B, l16) contiguous; m16: 2k
+// limbs; mu16: 2(k+1) limbs.  tpi, nw, threads and blocks are the launch
+// geometry (geometry.launch_geometry).  Returns the CUDA error of the
 // launch (0 on success).
-extern "C" int mulmod_launch(const int32_t* a, const int32_t* b, int32_t* out,
-                             int B, int l16, const int32_t* m16,
-                             const int32_t* mu16, int k, int threads,
-                             int blocks, void* stream) {
-  if (k < 1 || k > MAXW || l16 > 2 * k || threads < 1 || threads > 1024 ||
-      (long long)blocks * threads < B)
+extern "C" int mulmod_launch(const int32_t* a, long long sa, const int32_t* b,
+                             long long sb, int32_t* out, int B, int l16,
+                             const int32_t* m16, const int32_t* mu16, int k,
+                             int tpi, int nw, int threads, int blocks,
+                             void* stream) {
+  if (k < 1 || k > MAXW || l16 > 2 * k || sa < 0 || sb < 0 ||
+      threads < 32 || threads > 1024 || threads % 32 != 0 || tpi * nw < k ||
+      (long long)blocks * threads < (long long)B * tpi)
     return (int)cudaErrorInvalidValue;
   if (B <= 0) return 0;
-  mulmod_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      a, b, out, B, l16, m16, mu16, k);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+#define LAUNCH(T, N)                                                 \
+  if (tpi == T && nw == N) {                                        \
+    mulmod_kernel<T, N><<<blocks, threads, 0, s>>>(a, sa, b, sb, out, \
+                                                   B, l16, m16, mu16, k); \
+    return (int)cudaGetLastError();                                 \
+  }
+  MULMOD_SHAPES(LAUNCH)
+#undef LAUNCH
+  return (int)cudaErrorInvalidValue;
 }

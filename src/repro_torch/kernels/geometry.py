@@ -6,15 +6,16 @@ words each thread holds, the integers per block, the blocks and the
 dynamic shared memory.  The C launchers (``csrc/*.cu``) receive these
 values, check them and launch with them; they compute none of their own.
 
-* One thread per integer (``mulmod`` and the Barrett bodies): 32-thread
+* One thread per integer (the Barrett bodies of ``modexp``): 32-thread
   blocks, no dynamic shared memory.
-* A group of threads per integer (the Montgomery bodies of ``modexp`` and
-  ``modexp_fixed``): ``TPI`` threads, each holding ceil(k / TPI) words
-  rounded up to a power of two, one of the instantiations that ``SHAPES``
-  lists (the ``*_SHAPES`` macros of the sources).  ``modexp_fixed`` runs
-  one warp per block, so its small batches spread over the SMs;
-  ``modexp`` runs 64-thread blocks.  The win4 and fixed ladders keep a
-  16-entry power table per integer in dynamic shared memory.
+* A group of threads per integer (``mulmod``, both bodies of
+  ``modexp_fixed``, the Montgomery bodies of ``modexp``): ``TPI``
+  threads, each holding ceil(k / TPI) words rounded up to a power of two,
+  one of the instantiations that ``SHAPES`` lists (the ``*_SHAPES``
+  macros of the sources).  ``modexp_fixed`` runs one warp per block, so
+  its small batches spread over the SMs; ``modexp`` and ``mulmod`` run
+  64-thread blocks.  The win4 and fixed ladders keep a 16-entry power
+  table per integer in dynamic shared memory.
 
 Nothing here touches a device: the CPU tests check every width.
 """
@@ -34,15 +35,29 @@ BODIES = ("mulmod",
           "modexp[barrett,win4]", "modexp[barrett,binary]",
           "modexp_fixed[montgomery]", "modexp_fixed[barrett]")
 
-#: threads per integer of the cooperative kernels, at every width
-TPI = {"modexp": 8, "modexp_fixed": 32}
+#: threads per integer of the cooperative kernels, at every width (mulmod:
+#: below MULMOD_FULL_BATCH)
+TPI = {"modexp": 8, "modexp_fixed": 32, "mulmod": 32}
+#: From this batch on, mulmod runs MULMOD_FULL_WORDS words per lane (8 or
+#: 16 threads per integer at the main path's widths).  chip_smoke.py's
+#: sweep on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6), device
+#: ms at n^2 (k = 128) for TPI 32 / 16: B = 192 0.0318 / 0.0474, 2,304
+#: 0.0647 / 0.0700, 4,608 0.1125 / 0.1066, 18,432 0.3976 / 0.3301; at p^2
+#: (k = 64) for TPI 32 / 8: B = 192 0.0154 / 0.0269, 36,864 0.2639 /
+#: 0.1846.  While the card is nearly empty one integer's latency rules
+#: and the widest group wins; once it is full, 8 words per lane spend
+#: fewer shuffles per word product.
+MULMOD_FULL_BATCH = 4096
+MULMOD_FULL_WORDS = 8
 #: (threads per integer, words per thread) of every instantiation
 SHAPES = {
     "modexp": ((8, 1), (8, 2), (8, 4), (8, 8), (8, 16), (4, 16), (16, 4)),
     "modexp_fixed": ((32, 1), (32, 2), (32, 4), (16, 4), (8, 8)),
+    "mulmod": ((32, 1), (32, 2), (32, 4), (16, 1), (16, 2), (16, 4),
+               (16, 8), (8, 1), (8, 2), (8, 4), (8, 8), (8, 16)),
 }
 #: threads per block of the cooperative kernels, and of the one-thread ones
-BLOCK_THREADS = {"modexp": 64, "modexp_fixed": 32}
+BLOCK_THREADS = {"modexp": 64, "modexp_fixed": 32, "mulmod": 64}
 ONE_THREAD_BLOCK = 32
 TABLE_ENTRIES = 16
 
@@ -75,11 +90,22 @@ def _pow2_at_least(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
 
 
+def group_size(kernel: str, B: int, k: int) -> int:
+    """Threads per integer of a cooperative ``kernel`` at batch B and
+    width k: :data:`TPI`'s, but for a ``mulmod`` batch that fills the
+    card the size that gives each lane :data:`MULMOD_FULL_WORDS` words
+    (at least 8 threads, at most :data:`TPI`'s)."""
+    if kernel == "mulmod" and B >= MULMOD_FULL_BATCH:
+        return min(TPI[kernel],
+                   max(8, _pow2_at_least(-(-k // MULMOD_FULL_WORDS))))
+    return TPI[kernel]
+
+
 def launch_geometry(body: str, B: int, k: int,
                     tpi: int | None = None) -> Geometry:
     """Geometry of one launch of ``body`` (one of :data:`BODIES`) over B
     integers of k words.  ``tpi`` picks another instantiated group size
-    than :data:`TPI`'s, to time the candidates; one-thread bodies take
+    than :func:`group_size`'s, to time the candidates; one-thread bodies take
     none.  Raises ``ValueError`` for a width outside 1..MAX_WORDS, a
     negative batch, an instantiation that does not exist, or a block that
     would exceed 1,024 threads or 227 KB of shared memory."""
@@ -92,12 +118,12 @@ def launch_geometry(body: str, B: int, k: int,
     if B < 0:
         raise ValueError(f"negative batch {B}")
     kernel = body.split("[")[0]
-    if kernel == "mulmod" or "barrett" in body:
+    if body.startswith("modexp[barrett"):
         if tpi not in (None, 1):
             raise ValueError(f"{body} runs one thread per integer")
         threads, tpi, words, smem = ONE_THREAD_BLOCK, 1, k, 0
     else:
-        tpi = TPI[kernel] if tpi is None else tpi
+        tpi = group_size(kernel, B, k) if tpi is None else tpi
         words = _pow2_at_least(-(-k // tpi))
         if (tpi, words) not in SHAPES[kernel]:
             raise ValueError(
@@ -105,7 +131,7 @@ def launch_geometry(body: str, B: int, k: int,
                 f"at {k} words ({words} per thread); instantiated: "
                 f"{SHAPES[kernel]}")
         threads = BLOCK_THREADS[kernel]
-        table = body != "modexp[montgomery,binary]"
+        table = kernel == "modexp_fixed" or body == "modexp[montgomery,win4]"
         smem = TABLE_ENTRIES * words * threads * 4 if table else 0
     if threads > MAX_THREADS:
         raise ValueError(f"{body} at {k} words: {threads} threads per block "

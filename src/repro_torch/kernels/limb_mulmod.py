@@ -23,25 +23,38 @@ def mulmod_plain(a: torch.Tensor, b: torch.Tensor,
     return cm.barrett_mulmod(a, b, dm).to(torch.int32)
 
 
-def mulmod_cuda(a: torch.Tensor, b: torch.Tensor,
-                dm: cm.DeviceModulus) -> torch.Tensor:
-    """The ``csrc/mulmod.cu`` kernel on CUDA tensors (same contract)."""
-    a = a.to(torch.int32).contiguous()
-    b = b.to(torch.int32).contiguous()
+def _row_stride(x: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """``x`` with unit column stride and its row stride: a column slice
+    keeps its stride, a broadcast row (stride 0) stays one row."""
+    x = x.to(torch.int32)
+    if x.shape[1] > 1 and x.stride(1) != 1:
+        x = x.contiguous()
+    return x, x.stride(0) if x.shape[0] > 1 else 0
+
+
+def mulmod_cuda(a: torch.Tensor, b: torch.Tensor, dm: cm.DeviceModulus,
+                tpi: int | None = None) -> torch.Tensor:
+    """The ``csrc/mulmod.cu`` kernel on CUDA tensors (same contract).
+    ``b`` may be one row broadcast to every row of ``a`` (stride 0, as
+    ``expand`` gives): the kernel reads that row for every element.
+    ``tpi`` times another instantiated group size than the launch
+    geometry's own (``geometry.launch_geometry``)."""
     B = a.shape[0]
     build.require_rows("mulmod a", a, B, dm.L16)
     build.require_rows("mulmod b", b, B, dm.L16)
+    (a, sa), (b, sb) = _row_stride(a), _row_stride(b)
     out = torch.empty((B, dm.L16), dtype=torch.int32, device=a.device)
     if B == 0:
         return out
-    g = geometry.launch_geometry("mulmod", B, dm.L32)
+    g = geometry.launch_geometry("mulmod", B, dm.L32, tpi)
     launch = build.launcher("mulmod")
     with torch.cuda.device(a.device):
-        rc = launch(a.data_ptr(), b.data_ptr(), out.data_ptr(), B, dm.L16,
-                    dm.mw.data_ptr(), dm.muw.data_ptr(), dm.L32, g.threads,
-                    g.blocks, torch.cuda.current_stream(a.device).cuda_stream)
+        rc = launch(a.data_ptr(), sa, b.data_ptr(), sb, out.data_ptr(), B,
+                    dm.L16, dm.mw.data_ptr(), dm.muw.data_ptr(), dm.L32,
+                    g.tpi, g.words, g.threads, g.blocks,
+                    torch.cuda.current_stream(a.device).cuda_stream)
     build.check(rc, "mulmod")
-    build.LAUNCHES["mulmod"] += 1
+    build.count_launch("mulmod", B, dm.L32)
     return out
 
 

@@ -12,11 +12,11 @@ Port of ``repro.kernels.modexp``:
   (``csrc/modexp_fixed.cu``).  :func:`modexp_fixed_pair_cuda` runs both
   CRT halves of a Paillier exponentiation in one Montgomery launch.
 
-The Montgomery bodies run a group of threads per big integer, the
-Barrett bodies one thread; ``geometry.launch_geometry`` sizes every
-launch.  Each ``*_limbs`` function picks by where the base lives: a CUDA
-tensor launches the kernel (or raises), a CPU tensor takes the plain
-version.
+Both ``modexp_fixed`` bodies and the Montgomery bodies of ``modexp`` run
+a group of threads per big integer, the Barrett bodies of ``modexp`` one
+thread; ``geometry.launch_geometry`` sizes every launch.  Each
+``*_limbs`` function picks by where the base lives: a CUDA tensor
+launches the kernel (or raises), a CPU tensor takes the plain version.
 """
 from __future__ import annotations
 
@@ -81,7 +81,7 @@ def modexp_cuda(base: torch.Tensor, exp: torch.Tensor, dm: cm.DeviceModulus,
                     g.blocks, g.smem,
                     torch.cuda.current_stream(base.device).cuda_stream)
     build.check(rc, body)
-    build.LAUNCHES[body] += 1
+    build.count_launch(body, B, dm.L32)
     return out
 
 
@@ -118,7 +118,7 @@ def _launch_fixed(base: torch.Tensor, B0: int, windows, dms, mont: bool,
                     g.blocks, g.smem,
                     torch.cuda.current_stream(base.device).cuda_stream)
     build.check(rc, body)
-    build.LAUNCHES[body] += 1
+    build.count_launch(body, B, dm.L32)
     return out
 
 

@@ -4,17 +4,23 @@ Every body of the three hand-written kernels (mulmod; modexp's four
 (reduction x window) bodies; modexp_fixed's two) is held against its
 plain version on the same CUDA tensors and against Python ints, at small
 widths including an odd-byte modulus with full-width operands, and at
-ragged batch sizes.  The three cooperative Montgomery bodies (a group of
-threads per big integer) are also held, with zero tolerance, at widths
-k = 8, 16, 32, 63, 64 and 128 words (a random odd modulus and the
-top-word edge 2^{32k} - 1 at each; the 1000-bit odd-byte modulus at
-k = 32 and a 2000-bit one at k = 63, where k is not a multiple of the
-group), batches {0, 1, 77, one more than a block's integers, 192}, and
-exponents 0, 1 and one whose 4-bit windows take all 16 values; the
-two-half modexp_fixed launch (both CRT halves in one launch) is held
-against one plain call per half.  A small
-protocol run on the card is held against the same run on the CPU.  These
-tests need an NVIDIA card and skip without one; on the card run
+ragged batch sizes.  The cooperative bodies (a group of threads per big
+integer: mulmod, both modexp_fixed bodies, the Montgomery bodies of
+modexp) are also held, with zero tolerance, at widths k = 8, 16, 32, 63,
+64 and 128 words (a random odd modulus and the top-word edge 2^{32k} - 1
+at each; the 1000-bit odd-byte modulus at k = 32 and a 2000-bit one at
+k = 63, where k is not a multiple of the group), batches {0, 1, 77, one
+more than a block's integers, 192; mulmod also the batch from which it
+runs smaller groups}, and exponents 0, 1 and one whose 4-bit windows
+take all 16 values.  The Barrett bodies (mulmod and
+modexp_fixed[barrett]) also take a modulus whose top word is 1 (Barrett's
+quotient estimate is loosest there) and an even one, and mulmod the
+operands 0, m - 1, m and 2^{16 L16} - 1, a broadcast b row, a column
+slice and every instantiated group size at every width.  The two-half
+modexp_fixed launch (both CRT halves in one launch) is held against one
+plain call per half.  A small protocol run on the card is held against
+the same run on the CPU.  These tests need an NVIDIA card and skip
+without one; on the card run
 ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
 import random
@@ -147,6 +153,11 @@ def test_protocol_on_card_equals_cpu_run(dev):
 def _width_modulus(k: int, kind: str) -> int:
     if kind == "edge":                    # top word all ones: 2^{32k} - 1
         return (1 << (32 * k)) - 1
+    if kind == "top1":                    # top word 1, odd limb count
+        low = random.Random(k).getrandbits(32 * (k - 1))
+        return (1 << (32 * (k - 1))) | low | 1
+    if kind == "even":
+        return _odd_modulus(WIDTH_BITS[k]) - 1
     return _odd_modulus(WIDTH_BITS[k])
 
 
@@ -256,3 +267,121 @@ def test_modexp_fixed_pair_matches_plain_per_half(dev, k, Bp, Bq, tpi):
                                                  "montgomery"))
     assert bi.to_ints(xp) == [pow(x, exps[0], moduli[0]) for x in bp]
     assert bi.to_ints(xq) == [pow(x, exps[1], moduli[1]) for x in bq]
+
+
+BARRETT_KINDS = ("random", "edge", "top1", "even")
+
+
+def _mulmod_operands(rng, B, pack, dev):
+    """Full-width rows whose first rows are the edge operands: 0, m - 1,
+    m and 2^{16 L16} - 1 against 2^{16 L16} - 1, m - 1 and 1."""
+    m, full = pack.m_int, (1 << (16 * pack.L16)) - 1
+    a = [rng.getrandbits(16 * pack.L16) for _ in range(B)]
+    b = [rng.getrandbits(16 * pack.L16) for _ in range(B)]
+    for i, (x, y) in enumerate(((full, full), (0, full), (m - 1, m - 1),
+                                (m, 1), (m, full))[:B]):
+        a[i], b[i] = x, y
+    return (a, torch.as_tensor(bi.from_ints(a, pack.L16), device=dev),
+            b, torch.as_tensor(bi.from_ints(b, pack.L16), device=dev))
+
+
+@pytest.mark.parametrize("k", sorted(WIDTH_BITS))
+@pytest.mark.parametrize("kind", BARRETT_KINDS)
+@pytest.mark.parametrize("B", _cooperative_batches("mulmod")
+                         + (geometry.MULMOD_FULL_BATCH,))
+def test_cooperative_mulmod_matches_plain_and_ints(dev, k, kind, B):
+    m = _width_modulus(k, kind)
+    pack = ops.pack_modulus(m)
+    assert pack.L32 == k
+    dm = pack.on(dev)
+    a, at, b, bt = _mulmod_operands(random.Random(k * 41 + B), B, pack, dev)
+    before = build.LAUNCHES["mulmod"]
+    out = lm.mulmod_cuda(at, bt, dm)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["mulmod"] == before + (B > 0)
+    assert torch.equal(out, lm.mulmod_plain(at, bt, dm))
+    assert bi.to_ints(out) == [(x * y) % m for x, y in zip(a, b)]
+
+
+@pytest.mark.parametrize("k", sorted(WIDTH_BITS))
+@pytest.mark.parametrize("kind", BARRETT_KINDS)
+def test_mulmod_broadcast_row_and_column_slice(dev, k, kind):
+    """b as one row broadcast to the batch (stride 0, as the protocol's
+    constant multiplies give it) and a as a column slice of a wider
+    array (row stride 3 L16), as ``_reduce_into`` reads its chunks."""
+    m = _width_modulus(k, kind)
+    pack = ops.pack_modulus(m)
+    dm = pack.on(dev)
+    L, B = pack.L16, 130
+    rng = random.Random(k * 43)
+    wide, wide_t = _rows(rng, B, 3 * L, dev)
+    a = [(x >> (16 * L)) & ((1 << (16 * L)) - 1) for x in wide]
+    at = wide_t[:, L:2 * L]
+    c = rng.getrandbits(16 * L)
+    bt = torch.as_tensor(bi.from_ints([c], L), device=dev).expand(B, L)
+    assert at.stride(0) == 3 * L and bt.stride(0) == 0
+    out = lm.mulmod_cuda(at, bt, dm)
+    torch.cuda.synchronize()
+    assert torch.equal(out, lm.mulmod_plain(at.contiguous(),
+                                            bt.contiguous(), dm))
+    assert bi.to_ints(out) == [(x * c) % m for x in a]
+
+
+@pytest.mark.parametrize("k", sorted(WIDTH_BITS))
+@pytest.mark.parametrize("kind", ("random", "top1"))
+@pytest.mark.parametrize("tpi", sorted({t for t, _ in
+                                        geometry.SHAPES["mulmod"]}))
+def test_mulmod_every_group_size_at_every_width(dev, k, kind, tpi):
+    m = _width_modulus(k, kind)
+    pack = ops.pack_modulus(m)
+    dm = pack.on(dev)
+    a, at, b, bt = _mulmod_operands(random.Random(k + tpi), 77, pack, dev)
+    out = lm.mulmod_cuda(at, bt, dm, tpi=tpi)
+    torch.cuda.synchronize()
+    assert torch.equal(out, lm.mulmod_plain(at, bt, dm))
+    assert bi.to_ints(out) == [(x * y) % m for x, y in zip(a, b)]
+
+
+@pytest.mark.parametrize("k", sorted(WIDTH_BITS))
+@pytest.mark.parametrize("kind", BARRETT_KINDS)
+@pytest.mark.parametrize("B", _cooperative_batches("modexp_fixed"))
+def test_cooperative_modexp_fixed_barrett_matches_plain_and_ints(dev, k,
+                                                                 kind, B):
+    m = _width_modulus(k, kind)
+    pack = ops.pack_modulus(m)
+    assert pack.L32 == k
+    dm = pack.on(dev)
+    rng = random.Random(k * 47 + B)
+    base, bt = _rows(rng, B, pack.L16, dev)
+    for i, x in enumerate((0, m, (1 << (16 * pack.L16)) - 1)[:B]):
+        base[i] = x
+        bt[i] = torch.as_tensor(bi.from_ints([x], pack.L16)[0], device=dev)
+    for e in (1, ALL_WINDOWS, rng.getrandbits(128)):
+        windows = ops.mg.exp_windows(e)
+        before = build.LAUNCHES["modexp_fixed[barrett]"]
+        out = mx.modexp_fixed_cuda(bt, windows, dm, "barrett")
+        torch.cuda.synchronize()
+        assert build.LAUNCHES["modexp_fixed[barrett]"] == before + (B > 0)
+        assert torch.equal(out, mx.modexp_fixed_plain(bt, windows, dm,
+                                                      "barrett")), e
+        assert bi.to_ints(out) == [pow(x, e, m) for x in base], e
+
+
+@pytest.mark.parametrize("tpi", sorted({t for t, _ in
+                                        geometry.SHAPES["modexp_fixed"]}))
+@pytest.mark.parametrize("kind", ("random", "even"))
+def test_modexp_fixed_barrett_every_group_size(dev, tpi, kind):
+    """The Barrett body at the group sizes timed against the chosen one,
+    at k = 64."""
+    m = _width_modulus(64, kind)
+    pack = ops.pack_modulus(m)
+    dm = pack.on(dev)
+    rng = random.Random(tpi + 5)
+    base, bt = _rows(rng, 77, pack.L16, dev)
+    e = rng.getrandbits(2048)
+    windows = ops.mg.exp_windows(e)
+    out = mx.modexp_fixed_cuda(bt, windows, dm, "barrett", tpi=tpi)
+    torch.cuda.synchronize()
+    assert torch.equal(out, mx.modexp_fixed_plain(bt, windows, dm,
+                                                  "barrett"))
+    assert bi.to_ints(out) == [pow(x, e, m) for x in base]

@@ -352,9 +352,10 @@ MAIN_BATCHES = (0, 1, 192, 384, 18_432, 36_864)
 def test_launch_geometry_covers_every_width(body):
     """For every width 1..MAX_WORDS and main-path batch: an instantiated
     shape that holds k words, whole warps, blocks that cover B exactly
-    once, and shared memory and threads within Hopper's per-block limits."""
+    once, and shared memory and threads within Hopper's per-block limits.
+    Only the Barrett bodies of modexp run one thread per integer."""
     kernel = body.split("[")[0]
-    cooperative = kernel != "mulmod" and "barrett" not in body
+    cooperative = not body.startswith("modexp[barrett")
     for k in range(1, geometry.MAX_WORDS + 1):
         for B in MAIN_BATCHES:
             g = geometry.launch_geometry(body, B, k)
@@ -362,33 +363,66 @@ def test_launch_geometry_covers_every_width(body):
             assert g.smem <= geometry.MAX_SMEM_BYTES
             assert g.blocks * g.per_block >= B > (g.blocks - 1) * g.per_block
             if cooperative:
-                assert g.tpi == geometry.TPI[kernel]
+                assert g.tpi == geometry.group_size(kernel, B, k)
+                if kernel == "mulmod" and B >= geometry.MULMOD_FULL_BATCH:
+                    # the fewest threads (at least 8) that hold k words
+                    # at 8 words per lane
+                    assert g.words <= 8 and (g.tpi == 8 or
+                                             g.tpi * 8 >= k > g.tpi * 4)
+                else:
+                    assert g.tpi == geometry.TPI[kernel]
+                assert g.threads == geometry.BLOCK_THREADS[kernel]
                 assert (g.tpi, g.words) in geometry.SHAPES[kernel]
                 assert g.tpi * g.words >= k > g.tpi * g.words // 2 or \
                     g.words == 1
-                table = body != "modexp[montgomery,binary]"
+                table = kernel == "modexp_fixed" or \
+                    body == "modexp[montgomery,win4]"
                 assert g.smem == (16 * g.words * g.threads * 4 if table
                                   else 0)
             else:
                 assert (g.tpi, g.per_block, g.smem) == (1, 32, 0)
 
 
-def test_launch_geometry_main_path_shapes():
-    """The main path's launches: a warp per p^2 residue in its own block
-    for modexp_fixed, eight threads per residue for modexp."""
-    g = geometry.launch_geometry("modexp_fixed[montgomery]", 192, 64)
-    assert (g.tpi, g.words, g.per_block, g.blocks, g.smem) == \
-        (32, 2, 1, 192, 4096)
-    g = geometry.launch_geometry("modexp[montgomery,win4]", 36_864, 64)
-    assert (g.tpi, g.words, g.per_block, g.blocks, g.smem) == \
-        (8, 8, 8, 4608, 32768)
-    g = geometry.launch_geometry("mulmod", 18_432, 128)
-    assert (g.tpi, g.per_block, g.blocks) == (1, 32, 576)
-    for kernel, shapes in geometry.SHAPES.items():   # the timed candidates
-        body = geometry.body_name(kernel)
-        for tpi in {t for t, _ in shapes}:
-            g = geometry.launch_geometry(body, 192, 64, tpi=tpi)
-            assert g.tpi == tpi and tpi * g.words == 64
+@pytest.mark.parametrize("body, B, k, want", [
+    # a warp per p^2 residue in its own block, both fixed bodies
+    ("modexp_fixed[montgomery]", 192, 64, (32, 2, 1, 192, 4096)),
+    ("modexp_fixed[barrett]", 192, 64, (32, 2, 1, 192, 4096)),
+    # eight threads per residue for an edge's matvec
+    ("modexp[montgomery,win4]", 36_864, 64, (8, 8, 8, 4608, 32768)),
+    # mulmod: the sum, blinding and CRT multiplies, the tree's top level
+    # on n^2 and the reductions of an edge's matvec into p^2
+    ("mulmod", 192, 64, (32, 2, 2, 96, 0)),
+    ("mulmod", 192, 128, (32, 4, 2, 96, 0)),
+    ("mulmod", 18_432, 128, (16, 8, 4, 4608, 0)),
+    ("mulmod", 36_864, 64, (8, 8, 8, 4608, 0)),
+])
+def test_launch_geometry_main_path_shapes(body, B, k, want):
+    """The main path's launches, one case per launch shape."""
+    g = geometry.launch_geometry(body, B, k)
+    assert (g.tpi, g.words, g.per_block, g.blocks, g.smem) == want
+
+
+@pytest.mark.parametrize("body, tpi", [
+    (geometry.body_name(kernel, impl), tpi)
+    for kernel, shapes in sorted(geometry.SHAPES.items())
+    for impl in (("montgomery", "barrett") if kernel == "modexp_fixed"
+                 else ("montgomery",))
+    for tpi in sorted({t for t, _ in shapes})])
+def test_launch_geometry_group_size_candidates(body, tpi):
+    """Every group size timed against the chosen one holds 64 words."""
+    g = geometry.launch_geometry(body, 192, 64, tpi=tpi)
+    assert g.tpi == tpi and tpi * g.words == 64
+
+
+@pytest.mark.parametrize("tpi", sorted({t for t, _ in
+                                        geometry.SHAPES["mulmod"]}))
+def test_mulmod_candidates_cover_every_width(tpi):
+    """Every mulmod group size is instantiated at every width, so the
+    group size can be chosen by batch alone."""
+    for k in range(1, geometry.MAX_WORDS + 1):
+        g = geometry.launch_geometry("mulmod", 192, k, tpi=tpi)
+        assert (tpi, g.words) in geometry.SHAPES["mulmod"]
+        assert g.tpi * g.words >= k
 
 
 @pytest.mark.parametrize("body, B, k, tpi, match", [
@@ -399,6 +433,7 @@ def test_launch_geometry_main_path_shapes():
     ("modexp[montgomery,win4]", 5, 64, 32, "no instantiation"),
     ("modexp_fixed[montgomery]", 5, 128, 8, "no instantiation"),
     ("modexp[barrett,win4]", 5, 64, 8, "one thread"),
+    ("mulmod", 5, 64, 4, "no instantiation"),
     ("modexp[sideways,win4]", 5, 64, None, "unknown kernel body"),
 ])
 def test_launch_geometry_rejects(body, B, k, tpi, match):
@@ -433,3 +468,88 @@ def test_body_names_are_the_launch_counter_keys():
         for method in ("win4", "binary"):
             names.add(geometry.body_name("modexp", impl, method))
     assert names == set(geometry.BODIES)
+
+
+# ---------------------------------------------------------------------------
+# the cooperative Barrett product's quotient estimate (limbs.cuh barrett_mul)
+# ---------------------------------------------------------------------------
+
+def _barrett_moduli(k: int) -> dict:
+    """k-word moduli: top word 1 (the loosest estimate: mu's top word is
+    near 2^32), all ones, top bit only plus 1, a random odd and a random
+    even one (2^{32(k-1)} itself is refused by pack_modulus: its mu needs
+    k+2 words)."""
+    rng = random.Random(k)
+    low = 1 << (32 * (k - 1))
+    mods = {"ones": (1 << (32 * k)) - 1, "top_bit": (1 << (32 * k - 1)) | 1,
+            "odd": rng.getrandbits(32 * k) | (1 << (32 * k - 1)) | 1}
+    mods["even"] = mods["odd"] - 1
+    if k > 1:
+        mods["top1_min"] = low + 1
+        mods["top1"] = low | rng.getrandbits(32 * (k - 1)) | 1
+    return mods
+
+
+def _barrett_remainder(x: int, m: int, k: int, lo_shift: int,
+                       hi_shift: int) -> int:
+    """x - q3 m with the kernel's estimate q3 = floor(floor(x / b^lo) mu /
+    b^hi), b = 2^32, mu = floor(b^{2k} / m); the kernel takes lo = k - 1,
+    hi = k + 1 and forms the difference mod b^{k+1}."""
+    mu = (1 << (64 * k)) // m
+    q3 = ((x >> (32 * lo_shift)) * mu) >> (32 * hi_shift)
+    return x - q3 * m
+
+
+@pytest.mark.parametrize("k", (1, 2, 8, 63, 64, 128))
+def test_barrett_estimate_needs_at_most_two_subtractions(k):
+    """With the shifts k - 1 and k + 1 and mu of k + 1 words (the width of
+    ``ModulusPack.muw``, what ``group_load_mu`` reads), the remainder
+    formed mod b^{k+1} is exact and below 3m for every x < 2^{64k}: the
+    kernel's two masked subtractions of m make it canonical."""
+    b_k1 = 1 << (32 * (k + 1))
+    for name, m in _barrett_moduli(k).items():
+        mu = (1 << (64 * k)) // m
+        assert mu < b_k1, name
+        pack = ops.pack_modulus(m)
+        assert pack.L32 == k and bi.to_ints(pack.muw[None, :]) == [mu]
+        rng = random.Random(k * 1009 + len(name))
+        top = (1 << (64 * k)) - 1
+        xs = [top, ((1 << (32 * k)) - 1) ** 2, 0, m - 1, m, 3 * m - 1,
+              top - top % m, top - top % m - 1]
+        xs += [rng.getrandbits(64 * k) for _ in range(300)]
+        xs += [rng.getrandbits(32 * k) * m + rng.randrange(m)
+               for _ in range(50)]
+        for x in xs:
+            x = min(x, top)
+            r = _barrett_remainder(x, m, k, k - 1, k + 1)
+            r1, r2 = x % b_k1, (x - r) % b_k1      # x mod b^{k+1}, q3 m
+            assert (r1 - r2) % b_k1 == r, (name, x)
+            assert 0 <= r < 3 * m, (name, x)
+            subs = 0
+            while r >= m:
+                r -= m
+                subs += 1
+            assert subs <= 2 and r == x % m, (name, x)
+
+
+@pytest.mark.parametrize("k", (2, 8, 64, 128))
+def test_barrett_lane_aligned_shifts_are_not_exact(k):
+    """Shifting by k on both sides (lane-aligned) loses up to b^k / m
+    multiples of m: about 2^32 when m's top word is 1."""
+    m = (1 << (32 * (k - 1))) + 1
+    x = (1 << (64 * k)) - 1
+    assert _barrett_remainder(x, m, k, k, k) // m > 1 << 31
+    assert _barrett_remainder(x, m, k, k - 1, k + 1) < 3 * m
+
+
+def test_mulmod_row_strides():
+    """The kernel reads a and b with row strides: a column slice keeps its
+    stride and storage, a broadcast row has stride 0, a transposed view is
+    made contiguous."""
+    x = torch.arange(24, dtype=torch.int32).reshape(4, 6)
+    assert lm._row_stride(x)[1] == 6
+    sl, st = lm._row_stride(x[:, 2:4])
+    assert st == 6 and sl.data_ptr() == x[:, 2:4].data_ptr()
+    assert lm._row_stride(x[:1].expand(4, 6))[1] == 0
+    tr, st = lm._row_stride(x.t())
+    assert st == 4 and torch.equal(tr, x.t())
