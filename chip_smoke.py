@@ -8,10 +8,9 @@ package, and:
 1. requires a CUDA card and prints its name and power limit;
 2. builds the three hand-written kernels from ``src/repro_torch/kernels/
    csrc`` (one ``nvcc`` per source, in parallel) and prints the build time
-   and each instantiation's registers, stack frame and spills; the
-   cooperative (group-per-integer) instantiations (every one but the
-   Barrett bodies of modexp) must show no spills and a stack frame under
-   256 bytes;
+   and each instantiation's registers, stack frame and spills; every
+   instantiation (each runs a group of threads per integer with its words
+   in registers) must show no spills and a stack frame under 256 bytes;
 3. holds every kernel body (mulmod; modexp's four bodies; modexp_fixed's
    two) against its plain PyTorch version on the card and against Python
    ints, at the main path's widths (2048-bit p^2/q^2, 4096-bit n^2), an
@@ -22,11 +21,10 @@ package, and:
    the same inputs and holds the two outputs against each other and
    against Python ints on a sample (mulmod at each of its main-path
    shapes: B = 192 on p^2 and on n^2, each level of the product tree on
-   n^2 and B = 36,864 on p^2); times
-   the group-size candidates of the cooperative bodies on the same inputs
-   and holds their outputs the same way, and times the main path's
-   two-half modexp_fixed launch (p^2 and q^2 rows in one launch) against
-   two launches;
+   n^2 and B = 36,864 on p^2); times every body's group-size candidates
+   (mulmod's at each shape) on the same inputs and holds their outputs
+   the same way, and times the main path's two-half modexp_fixed launch
+   (p^2 and q^2 rows in one launch) against two launches;
 4. runs the main path — gold-cipher private LASSO at the paper's Fig. 6
    key and quantizer (2048-bit keys, Delta = 1e15, K = 3, rho = lam = 1)
    with the scale cut to N = 576, M = 64, 3 iterations — and the plain
@@ -41,12 +39,17 @@ package, and:
    width;
 6. runs one round at N = 1,152 (Nk = 384 per edge) against its plain arm,
    to show how a round scales with Nk;
-7. prints the kernel table as one JSON line, then as its last line
+7. runs the main path of step 4 under ``REPRO_REDUCE_IMPL=barrett`` (the
+   reference's Barrett arm, set for this phase only): the same checks
+   against the same plain history, with modexp[barrett,win4] and
+   modexp_fixed[barrett] launched and no Montgomery body;
+8. prints the kernel table as one JSON line, then as its last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
 result.  Exact integer work: the tolerance of every comparison is zero.
 """
+import contextlib
 import json
 import os
 import random
@@ -92,10 +95,11 @@ BODY_SOURCES = {
 }
 MAIN_PATH_BODIES = ("mulmod", "modexp[montgomery,win4]",
                     "modexp_fixed[montgomery]")
-# cooperative instantiations (all but the one-thread Barrett bodies of
-# modexp) must keep every row in registers
-ONE_THREAD_KERNELS = ("modexp_barrett_kernel",)
-MAX_COOP_STACK = 256
+# the main path under REPRO_REDUCE_IMPL=barrett
+BARRETT_ARM_BODIES = ("mulmod", "modexp[barrett,win4]",
+                      "modexp_fixed[barrett]")
+# every instantiation must keep its rows in registers
+MAX_STACK = 256
 
 
 def log(*parts):
@@ -164,21 +168,24 @@ def build_kernels(build):
     log(f"build: {time.perf_counter() - t0:.2f} s ({len(logs)} sources "
         f"compiled)")
     rows = ptxas_report(logs)
-    coop = set()
     for name, r in sorted(rows.items()):
         log(f"  ptxas {name}: {r.get('registers')} registers, "
             f"{r.get('stack')} B stack, {r.get('spill_stores')} B spill "
             f"stores, {r.get('spill_loads')} B spill loads")
-        if not name.startswith(ONE_THREAD_KERNELS):
-            coop.add(name.split("<")[0])
-            assert r.get("spill_stores") == 0 and r.get("spill_loads") == 0 \
-                and r.get("stack", MAX_COOP_STACK) < MAX_COOP_STACK, \
-                f"{name} keeps rows in local memory: {r}"
-    assert coop == {"mulmod_kernel", "modexp_mont_kernel",
-                    "modexp_fixed_kernel"}, \
-        f"cooperative kernels in the ptxas report: {sorted(coop)}"
-    assert any(n.startswith("modexp_fixed_kernel") and n.endswith(",false>")
-               for n in rows), "no cooperative modexp_fixed[barrett]"
+        assert r.get("spill_stores") == 0 and r.get("spill_loads") == 0 \
+            and r.get("stack", MAX_STACK) < MAX_STACK, \
+            f"{name} keeps rows in local memory: {r}"
+    templates = {name.split("<")[0] for name in rows}
+    assert templates == {"mulmod_kernel", "modexp_kernel",
+                         "modexp_fixed_kernel"}, \
+        f"kernel templates in the ptxas report: {sorted(templates)}"
+    # every body of modexp (window x product) and of modexp_fixed
+    for template, bodies in (("modexp_kernel", (
+            ",true,true>", ",false,true>", ",true,false>", ",false,false>")),
+            ("modexp_fixed_kernel", (",true>", ",false>"))):
+        for tail in bodies:
+            assert any(n.startswith(template + "<") and n.endswith(tail)
+                       for n in rows), f"no {template}<...{tail}"
 
 
 # ---------------------------------------------------------------------------
@@ -246,8 +253,7 @@ def kernel_symbol(body):
         return "mulmod_kernel"
     if body.startswith("modexp_fixed"):
         return "modexp_fixed_kernel"
-    return "modexp_mont_kernel" if "montgomery" in body \
-        else "modexp_barrett_kernel"
+    return "modexp_kernel"
 
 
 def kernel_ms(fn, reps, symbol):
@@ -350,7 +356,7 @@ def time_kernels(key, packs, bi, geometry, mg, lm, mx, dev):
     """Each body at the main path's shapes: timed beside its plain
     version on the same inputs, and both outputs held against each other
     (zero tolerance) and against Python ints on a sample.  The group-size
-    candidates of the cooperative bodies run on the same inputs and are
+    candidates of every body run on the same inputs and are
     held against the same plain output."""
     rng = random.Random(SEED + 2)
     out, sweep, shapes = {}, [], []
@@ -377,9 +383,8 @@ def time_kernels(key, packs, bi, geometry, mg, lm, mx, dev):
 
     def candidates(name, launch, ref, want, reps, B, k):
         """Every instantiated group size of ``name``'s kernel at B x k."""
-        kernel = name.split("[")[0]
         chosen = geometry.launch_geometry(name, B, k).tpi
-        for tpi in sorted({t for t, _ in geometry.SHAPES[kernel]}):
+        for tpi in sorted({t for t, _ in geometry.SHAPES[name]}):
             g = geometry.launch_geometry(name, B, k, tpi)
             ms, event_ms, got = kernel_ms(lambda: launch(tpi), reps,
                                           kernel_symbol(name))
@@ -449,15 +454,14 @@ def time_kernels(key, packs, bi, geometry, mg, lm, mx, dev):
             ref = measure(
                 name, lambda: mx.modexp_cuda(bt, et, dm, method, impl),
                 lambda: mx.modexp_plain(bt, et, dm, method, impl),
-                10 if mont else 5, want,
+                10, want,
                 f"B={B} p^2 {pack.L32} words, 64-bit exps",
                 word_products("modexp", pack.L32, exp_bits=64, mont=mont,
                               win4=method == "win4"),
                 B, B * (2 * pack.L16 + 4) * 4, pack.L32)
-            if name == "modexp[montgomery,win4]":
-                candidates(name, lambda tpi: mx.modexp_cuda(
-                    bt, et, dm, "win4", "montgomery", tpi=tpi),
-                    ref, want, 10, B, pack.L32)
+            candidates(name, lambda tpi: mx.modexp_cuda(
+                bt, et, dm, method, impl, tpi=tpi), ref, want, 10, B,
+                pack.L32)
     # modexp_fixed: one encryption's r^n / decryption's c^lam half, Nk rows
     B = NK
     base, bt = rows(B, pack.L16)
@@ -509,7 +513,36 @@ def lasso_config(protocol, QuantSpec, cipher, iters):
                                    device="cuda")
 
 
-def run_main_path(protocol, gold, bi, build, QuantSpec, make_lasso):
+@contextlib.contextmanager
+def environ(name, value):
+    """``os.environ[name] = value`` inside the block, restored after."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
+
+
+def run_plain(protocol, QuantSpec, make_lasso):
+    """The plain arm of the main path: the history every gold run must
+    equal bit for bit."""
+    inst = make_lasso(M, N, sparsity=0.1, noise=0.01, seed=SEED)
+    res = protocol.run_protocol(
+        inst.A, inst.y, lasso_config(protocol, QuantSpec, "plain", ITERS))
+    assert res.history.shape == (ITERS, N)
+    return res.history
+
+
+def run_main_path(protocol, gold, bi, build, QuantSpec, make_lasso,
+                  plain_history, bodies, absent=()):
+    """The gold main path with the launch counts set to 0 just before it
+    and read just after: every body of ``bodies`` launched, none of
+    ``absent``; its history equal to the plain arm's, and a sample of the
+    first round's ciphertexts equal to scalar ``encrypt_crt``."""
     inst = make_lasso(M, N, sparsity=0.1, noise=0.01, seed=SEED)
     rec = {}
     real_make_box = protocol.make_box
@@ -530,15 +563,16 @@ def run_main_path(protocol, gold, bi, build, QuantSpec, make_lasso):
         shape_launches = dict(build.SHAPE_LAUNCHES)
     finally:
         protocol.make_box = real_make_box
-    plain_res = protocol.run_protocol(
-        inst.A, inst.y, lasso_config(protocol, QuantSpec, "plain", ITERS))
     assert gold_res.history.shape == (ITERS, N)
     assert np.all(np.isfinite(gold_res.history))
-    assert gold_res.history.tobytes() == plain_res.history.tobytes(), \
+    assert gold_res.history.tobytes() == plain_history.tobytes(), \
         "gold history differs from the plain arm"
-    for name in MAIN_PATH_BODIES:
+    for name in bodies:
         assert launches[name] > 0, \
             f"kernel body {name} was not launched on the main path"
+    for name in absent:
+        assert launches[name] == 0, \
+            f"kernel body {name} was launched {launches[name]} times"
     # replay the blinding rng: the share phase's K encryptions, then the
     # first round's (z, v) pair per edge; sample each call's first rows
     box = rec["box"]
@@ -555,6 +589,17 @@ def run_main_path(protocol, gold, bi, build, QuantSpec, make_lasso):
             assert got == want, f"ciphertext mismatch in call {idx}"
             checked += len(got)
     return gold_res, wall, launches, shape_launches, checked
+
+
+def report_path(wall, secs, checked, launches, shape_launches):
+    log(f"  wall {wall:.2f} s; init {secs['init']:.3f} s, share "
+        f"{secs['share']:.3f} s, iterate {secs['iterate']:.3f} s; rounds "
+        + ", ".join(f"{s:.4f}" for s in secs["rounds"]) + " s")
+    log(f"  history equals the plain arm bit for bit; {checked} sampled "
+        f"ciphertexts equal scalar encrypt_crt; launches {launches}")
+    log("  launches by shape: " + json.dumps(
+        [{"body": body, "B": B, "k": k, "launches": n}
+         for (body, B, k), n in sorted(shape_launches.items())]))
 
 
 def _kernel_group(name):
@@ -710,17 +755,12 @@ def main():
 
     log(f"main path: gold LASSO, {KEY_BITS}-bit key, Delta={DELTA:g}, "
         f"K={K}, N={N}, M={M}, iters={ITERS}")
+    plain_history = run_plain(protocol, QuantSpec, make_lasso)
     res, wall, launches, shape_launches, checked = run_main_path(
-        protocol, gold, bi, build, QuantSpec, make_lasso)
+        protocol, gold, bi, build, QuantSpec, make_lasso, plain_history,
+        MAIN_PATH_BODIES)
     secs = res.stats["seconds"]
-    log(f"  wall {wall:.2f} s; init {secs['init']:.3f} s, share "
-        f"{secs['share']:.3f} s, iterate {secs['iterate']:.3f} s; rounds "
-        + ", ".join(f"{s:.4f}" for s in secs["rounds"]) + " s")
-    log(f"  history equals the plain arm bit for bit; {checked} sampled "
-        f"ciphertexts equal scalar encrypt_crt; launches {launches}")
-    log("  launches by shape: " + json.dumps(
-        [{"body": body, "B": B, "k": k, "launches": n}
-         for (body, B, k), n in sorted(shape_launches.items())]))
+    report_path(wall, secs, checked, launches, shape_launches)
 
     log("time split of one main-path round (torch.profiler):")
     split = time_split(protocol, lm, mx, QuantSpec, make_lasso,
@@ -731,6 +771,17 @@ def main():
     scaled = run_scaled(protocol, QuantSpec, make_lasso)
     log(f"  share {scaled['share']:.3f} s, round "
         f"{scaled['rounds'][0]:.4f} s; history equals the plain arm")
+
+    # after the Montgomery phases, so none of their timings follows it
+    log("main path under REPRO_REDUCE_IMPL=barrett:")
+    with environ("REPRO_REDUCE_IMPL", "barrett"):
+        bres, bwall, blaunches, bshape_launches, bchecked = run_main_path(
+            protocol, gold, bi, build, QuantSpec, make_lasso, plain_history,
+            BARRETT_ARM_BODIES,
+            absent=[b for b in geometry.BODIES if "montgomery" in b])
+    report_path(bwall, bres.stats["seconds"], bchecked, blaunches,
+                bshape_launches)
+
     log(f"script: {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
@@ -740,6 +791,7 @@ def main():
         entry = {
             "name": body, "route": "cuda", "source": f"{CSRC}/{source}",
             "replaces": replaces, "launches": launches[body],
+            "barrett_arm_launches": blaunches[body],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,

@@ -2,10 +2,12 @@
 
 Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface (``nvcc -gencode arch=compute_90a,code=sm_90a -O3
--shared``), one ``nvcc`` per source, all started together.  Libraries are
-cached under ``build/repro_torch/`` at the repository root, named by a
-hash of the sources and flags, so a later process loads them without
-rebuilding and an edited source rebuilds.  Nothing here runs at import:
+-shared``), one ``nvcc`` per source, all started together, each
+optimizing its kernel instantiations on every core
+(``-split-compile=0``).  Libraries are cached under
+``build/repro_torch/`` at the repository root, named by a hash of the
+sources and flags, so a later process loads them without rebuilding and
+an edited source rebuilds.  Nothing here runs at import:
 this module imports on machines without a card or a CUDA toolkit.
 
 Launch counts: each kernel wrapper calls :func:`count_launch` where it
@@ -30,7 +32,7 @@ from . import geometry
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-split-compile=0")
 NVCC_TIMEOUT_S = 900
 
 _P, _I, _U, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,

@@ -1,26 +1,18 @@
 // Multi-precision integer helpers shared by the limb kernels.
 //
-// Two designs live here.
-//
-// * One thread per big integer: the Barrett bodies of modexp only.  A big
-//   integer is a little-endian row of 32-bit words in per-thread local
-//   arrays sized for the widest modulus (MAXW words); loops run to the
-//   actual width k.  Local memory is laid out so that the same word of
-//   every thread of a warp is contiguous, so the uniform loops below make
-//   coalesced accesses.
-//
-// * A group of TPI threads per big integer (mulmod, both bodies of
-//   modexp_fixed, the Montgomery bodies of modexp): lane j of the group
-//   holds words j*NW .. j*NW + NW-1 of every operand in registers (TPI and
-//   NW are template parameters, so every register array is indexed by
-//   unrolled loops only), C = TPI*NW words in all.  Words at and above the
-//   width k are zero.  mont_mul below is the CIOS product of Koc et al.
-//   1996 distributed over the group, in the layout of NVlabs' CGBN;
-//   barrett_mul is HAC 14.42 on three product scans in the same layout.
-//   Barrett's quantities of k+1 words (q1, mu, q3, r) keep their word at
-//   position C, which the group cannot hold when C == k (k = 64 at TPI 32,
-//   NW 2), as a per-group scalar that every lane of the group holds alike;
-//   when C > k that scalar is 0 and word k lies inside the group.
+// Every kernel runs a group of TPI threads per big integer (mulmod, both
+// bodies of modexp_fixed, all four bodies of modexp): lane j of the group
+// holds words j*NW .. j*NW + NW-1 of every operand in registers (TPI and
+// NW are template parameters, so every register array is indexed by
+// unrolled loops only), C = TPI*NW words in all.  Words at and above the
+// width k are zero.  mont_mul below is the CIOS product of Koc et al.
+// 1996 distributed over the group, in the layout of NVlabs' CGBN;
+// barrett_mul is HAC 14.42 on three product scans in the same layout.
+// Barrett's quantities of k+1 words (q1, mu, q3, r) keep their word at
+// position C, which the group cannot hold when C == k (k = 64 at TPI 32,
+// NW 2), as a per-group scalar that every lane of the group holds alike;
+// when C > k that scalar is 0 and word k lies inside the group.
+// GroupField wraps either product for the exponentiation ladders.
 //
 // Products are 32x32->64 bits, so a k-word schoolbook product costs k^2
 // word products.  At the public boundary every row is the reference's
@@ -53,130 +45,6 @@ __device__ __forceinline__ u32 word16(const int32_t* __restrict__ src,
   u32 hi = (2 * i + 1 < l16) ? (u32)src[2 * i + 1] : 0u;
   return (lo & 0xFFFFu) | (hi << 16);
 }
-
-// ---------------------------------------------------------------------------
-// One thread per big integer
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void load_row(const int32_t* __restrict__ src,
-                                         int l16, u32* dst, int nw) {
-  for (int i = 0; i < nw; ++i) dst[i] = word16(src, l16, i);
-}
-
-__device__ __forceinline__ void store_row(const u32* src, int l16,
-                                          int32_t* __restrict__ dst) {
-  for (int i = 0; i < l16; ++i)
-    dst[i] = (int32_t)((src[i >> 1] >> (16 * (i & 1))) & 0xFFFFu);
-}
-
-// Block-wide copy of a radix-2^16 row into nw shared words.
-__device__ __forceinline__ void load_shared(const int32_t* __restrict__ src,
-                                            int l16, u32* dst, int nw) {
-  for (int i = threadIdx.x; i < nw; i += blockDim.x) dst[i] = word16(src, l16, i);
-}
-
-// t[0, la + lb) = a * b.
-__device__ __forceinline__ void mul(const u32* a, int la, const u32* b,
-                                    int lb, u32* t) {
-  for (int i = 0; i < la + lb; ++i) t[i] = 0;
-  for (int i = 0; i < la; ++i) {
-    u64 c = 0;
-    const u64 ai = a[i];
-    for (int j = 0; j < lb; ++j) {
-      u64 s = ai * b[j] + t[i + j] + c;
-      t[i + j] = (u32)s;
-      c = s >> 32;
-    }
-    t[i + lb] = (u32)c;
-  }
-}
-
-// r (k+1 words) -= m (k words) when r >= m.  Branch-free: the first pass
-// finds the borrow of r - m, the second subtracts m masked by it.
-__device__ __forceinline__ void cond_sub(u32* r, const u32* m, int k) {
-  u32 borrow = 0;
-  for (int i = 0; i < k; ++i) {
-    u64 d = (u64)r[i] - m[i] - borrow;
-    borrow = (u32)(d >> 63);
-  }
-  borrow = (u32)(((u64)r[k] - borrow) >> 63);
-  const u32 mask = borrow - 1u;  // all ones when r >= m
-  borrow = 0;
-  for (int i = 0; i < k; ++i) {
-    u64 d = (u64)r[i] - (m[i] & mask) - borrow;
-    r[i] = (u32)d;
-    borrow = (u32)(d >> 63);
-  }
-  r[k] -= borrow;
-}
-
-// Barrett reduction (HAC 14.42), b = 2^32: r (k+1 words, canonical, top
-// word 0) = x mod m for any x < b^{2k} given as 2k words; m has k words
-// with m[k-1] != 0 and mu = floor(b^{2k} / m) has k+1 words.
-// Scratch: q (2k+2 words), r2 (k+1 words).
-__device__ __forceinline__ void barrett(const u32* x, const u32* m,
-                                        const u32* mu, int k, u32* q, u32* r2,
-                                        u32* r) {
-  // q2 = floor(x / b^{k-1}) * mu; q3 = floor(q2 / b^{k+1})
-  mul(x + (k - 1), k + 1, mu, k + 1, q);
-  const u32* q3 = q + (k + 1);
-  // r2 = q3 * m mod b^{k+1}
-  for (int i = 0; i <= k; ++i) r2[i] = 0;
-  for (int i = 0; i <= k; ++i) {
-    u64 c = 0;
-    const u64 qi = q3[i];
-    for (int j = 0; j < k && i + j <= k; ++j) {
-      u64 s = qi * m[j] + r2[i + j] + c;
-      r2[i + j] = (u32)s;
-      c = s >> 32;
-    }
-    if (i == 0) r2[k] = (u32)c;
-  }
-  // r = (x mod b^{k+1}) - r2 mod b^{k+1}, then r < 3m
-  u32 borrow = 0;
-  for (int i = 0; i <= k; ++i) {
-    u64 d = (u64)x[i] - r2[i] - borrow;
-    r[i] = (u32)d;
-    borrow = (u32)(d >> 63);
-  }
-  cond_sub(r, m, k);
-  cond_sub(r, m, k);
-}
-
-// The Barrett modular multiply of the one-thread modexp ladders.  ``m`` and
-// ``mu`` (k+1 words) point to shared memory.
-struct BarrettField {
-  const u32* m;
-  const u32* mu;
-  int k;
-  // per-thread scratch
-  u32 x[2 * MAXW + 2];
-  u32 q[2 * MAXW + 2];
-  u32 r2[MAXW + 1];
-  u32 rr[MAXW + 1];
-
-  // out = a * b mod m (out may alias a or b)
-  __device__ __forceinline__ void mulmod(const u32* a, const u32* b,
-                                         u32* out) {
-    mul(a, k, b, k, x);
-    barrett(x, m, mu, k, q, r2, rr);
-    for (int i = 0; i < k; ++i) out[i] = rr[i];
-  }
-
-  // out = a mod m for a row a of k words
-  __device__ __forceinline__ void reduce(const u32* a, u32* out) {
-    for (int i = 0; i < k; ++i) {
-      x[i] = a[i];
-      x[k + i] = 0;
-    }
-    barrett(x, m, mu, k, q, r2, rr);
-    for (int i = 0; i < k; ++i) out[i] = rr[i];
-  }
-};
-
-// ---------------------------------------------------------------------------
-// A group of TPI threads per big integer
-// ---------------------------------------------------------------------------
 
 // Lane of this thread within its group (TPI is a power of two <= 32).
 template <int TPI>
@@ -520,5 +388,78 @@ __device__ __forceinline__ void barrett_mul(const u32 (&a)[NW],
 #pragma unroll
   for (int w = 0; w < NW; ++w) r[w] = rr[w];
 }
+
+// The product of one exponentiation ladder over a group: Montgomery
+// (s: mp = -m^{-1} mod 2^32; the ladder runs on x R mod m, R = 2^{32k})
+// or Barrett (aux: mu below word C, s: mu's word C; no domain, so any
+// modulus, odd or even).
+template <int TPI, int NW, bool MONT>
+struct GroupField {
+  u32 m[NW], aux[NW], s;
+  int k;
+
+  __device__ __forceinline__ void mul(const u32 (&a)[NW], const u32 (&b)[NW],
+                                      u32 (&r)[NW]) const {
+    if constexpr (MONT)
+      mont_mul<TPI, NW>(a, b, m, s, k, r);
+    else
+      barrett_mul<TPI, NW>(a, b, m, aux, s, k, r);
+  }
+
+  // Load the field of the modulus m16 (2k limbs): aux16 is R mod m (2k
+  // limbs, Montgomery) or mu (2(k+1) limbs, Barrett), r2_16 R^2 mod m and
+  // mp (Montgomery only).  Then bring the base b into the ladder's form
+  // (Montgomery b R mod m; Barrett b mod m, reduced first as the plain
+  // version does) and set one to the ladder's 1.  x is scratch.
+  __device__ __forceinline__ void enter(const int32_t* __restrict__ m16,
+                                        const int32_t* __restrict__ aux16,
+                                        const int32_t* __restrict__ r2_16,
+                                        u32 mp, int width, u32 (&b)[NW],
+                                        u32 (&one)[NW], u32 (&x)[NW]) {
+    k = width;
+    group_load<TPI, NW>(m16, 2 * k, k, true, m);
+    if constexpr (MONT) {
+      s = mp;
+      group_load<TPI, NW>(r2_16, 2 * k, k, true, x);
+      mul(b, x, b);
+      group_load<TPI, NW>(aux16, 2 * k, k, true, one);  // R mod m
+    } else {
+      group_load_mu<TPI, NW>(aux16, k, aux, s);
+      group_one<TPI, NW>(one);
+      mul(b, one, b);
+    }
+  }
+
+  // res out of the ladder's form: Montgomery REDC(res) = res * 1; Barrett
+  // has no domain to leave.  x is scratch.
+  __device__ __forceinline__ void leave(u32 (&res)[NW], u32 (&x)[NW]) const {
+    if constexpr (MONT) {
+      group_one<TPI, NW>(x);
+      mul(res, x, res);
+    }
+  }
+
+  // The 16-entry power table one, b, b^2, ..., b^15 in dynamic shared
+  // memory: entry t word w of thread i at tab[(t NW + w) blockDim + i], so
+  // a warp's accesses hit 32 banks and each thread reads back only what
+  // it wrote (no barrier).  x is scratch.
+  __device__ __forceinline__ void power_table(u32* tab, const u32 (&one)[NW],
+                                              const u32 (&b)[NW],
+                                              u32 (&x)[NW]) const {
+    u32* mine = tab + threadIdx.x;
+    const int bd = blockDim.x;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      mine[w * bd] = one[w];
+      mine[(NW + w) * bd] = b[w];
+      x[w] = b[w];
+    }
+    for (int t = 2; t < 16; ++t) {
+      mul(x, b, x);
+#pragma unroll
+      for (int w = 0; w < NW; ++w) mine[(t * NW + w) * bd] = x[w];
+    }
+  }
+};
 
 }  // namespace limbs

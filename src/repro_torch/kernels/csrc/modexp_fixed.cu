@@ -55,22 +55,6 @@ struct Half {
   u32 mp;                  // -m^{-1} mod 2^32 (Montgomery)
 };
 
-// The product of one ladder: Montgomery (aux: R mod m; s: mp) or Barrett
-// (aux: mu below word C; s: mu's word C).
-template <int TPI, int NW, bool MONT>
-struct GroupField {
-  u32 m[NW], aux[NW], s;
-  int k;
-
-  __device__ __forceinline__ void mul(const u32 (&a)[NW], const u32 (&b)[NW],
-                                      u32 (&r)[NW]) const {
-    if constexpr (MONT)
-      mont_mul<TPI, NW>(a, b, m, s, k, r);
-    else
-      barrett_mul<TPI, NW>(a, b, m, aux, s, k, r);
-  }
-};
-
 template <int TPI, int NW, bool MONT>
 __global__ void modexp_fixed_kernel(const int32_t* __restrict__ base,
                                     int32_t* __restrict__ out, int B, int B0,
@@ -81,34 +65,12 @@ __global__ void modexp_fixed_kernel(const int32_t* __restrict__ base,
   const bool live = e < B;
   const Half h = (live && e >= B0) ? h1 : h0;
   GroupField<TPI, NW, MONT> f;
-  f.k = k;
   u32 b[NW], res[NW], x[NW];
-  group_load<TPI, NW>(h.m16, 2 * k, k, true, f.m);
   group_load<TPI, NW>(base + (size_t)(live ? e : 0) * l16, l16, k, live, b);
-  if constexpr (MONT) {
-    f.s = h.mp;
-    group_load<TPI, NW>(h.r2_16, 2 * k, k, true, x);
-    f.mul(b, x, b);                                     // into the domain
-    group_load<TPI, NW>(h.aux16, 2 * k, k, true, res);  // 1 in the domain
-  } else {
-    group_load_mu<TPI, NW>(h.aux16, k, f.aux, f.s);
-    group_one<TPI, NW>(res);
-    f.mul(b, res, b);                                   // base mod m
-  }
-
-  u32* mine = tab + threadIdx.x;
+  f.enter(h.m16, h.aux16, h.r2_16, h.mp, k, b, res, x);
+  f.power_table(tab, res, b, x);
+  const u32* mine = tab + threadIdx.x;
   const int bd = blockDim.x;
-#pragma unroll
-  for (int w = 0; w < NW; ++w) {
-    mine[w * bd] = res[w];
-    mine[(NW + w) * bd] = b[w];
-    x[w] = b[w];
-  }
-  for (int t = 2; t < 16; ++t) {
-    f.mul(x, b, x);
-#pragma unroll
-    for (int w = 0; w < NW; ++w) mine[(t * NW + w) * bd] = x[w];
-  }
   for (int j = 0; j < n_win; ++j) {
     const int win = h.windows[j];  // key-constant, host-known
     for (int s = 0; s < 4; ++s) f.mul(res, res, res);
@@ -116,10 +78,7 @@ __global__ void modexp_fixed_kernel(const int32_t* __restrict__ base,
     for (int w = 0; w < NW; ++w) x[w] = mine[(win * NW + w) * bd];
     f.mul(res, x, res);
   }
-  if constexpr (MONT) {
-    group_one<TPI, NW>(x);  // leave the domain: REDC(res) = res * 1
-    f.mul(res, x, res);
-  }
+  f.leave(res, x);
   if (live) group_store<TPI, NW>(res, l16, out + (size_t)e * l16);
 }
 

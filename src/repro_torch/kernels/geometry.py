@@ -6,16 +6,13 @@ words each thread holds, the integers per block, the blocks and the
 dynamic shared memory.  The C launchers (``csrc/*.cu``) receive these
 values, check them and launch with them; they compute none of their own.
 
-* One thread per integer (the Barrett bodies of ``modexp``): 32-thread
-  blocks, no dynamic shared memory.
-* A group of threads per integer (``mulmod``, both bodies of
-  ``modexp_fixed``, the Montgomery bodies of ``modexp``): ``TPI``
-  threads, each holding ceil(k / TPI) words rounded up to a power of two,
-  one of the instantiations that ``SHAPES`` lists (the ``*_SHAPES``
-  macros of the sources).  ``modexp_fixed`` runs one warp per block, so
-  its small batches spread over the SMs; ``modexp`` and ``mulmod`` run
-  64-thread blocks.  The win4 and fixed ladders keep a 16-entry power
-  table per integer in dynamic shared memory.
+Every kernel runs a group of ``TPI`` threads per integer, each holding
+ceil(k / TPI) words rounded up to a power of two, one of the
+instantiations that ``SHAPES`` lists (the ``*_SHAPES`` macros of the
+sources).  ``modexp_fixed`` runs one warp per block, so its small batches
+spread over the SMs; ``modexp`` and ``mulmod`` run 64-thread blocks.  The
+win4 and fixed ladders keep a 16-entry power table per integer in dynamic
+shared memory.
 
 Nothing here touches a device: the CPU tests check every width.
 """
@@ -35,9 +32,18 @@ BODIES = ("mulmod",
           "modexp[barrett,win4]", "modexp[barrett,binary]",
           "modexp_fixed[montgomery]", "modexp_fixed[barrett]")
 
-#: threads per integer of the cooperative kernels, at every width (mulmod:
-#: below MULMOD_FULL_BATCH)
-TPI = {"modexp": 8, "modexp_fixed": 32, "mulmod": 32}
+#: threads per integer of each body, at every width (mulmod: below
+#: MULMOD_FULL_BATCH).  modexp's bodies run 8 but modexp[barrett,win4]
+#: 16: chip_smoke.py's sweep on an NVIDIA H100 80GB HBM3 at 700 W
+#: (PERF.md section 6), device ms at p^2 (k = 64), B = 36,864, 64-bit
+#: exponents, TPI 4 / 8 / 16: [barrett,win4] 31.68 / 20.12 / 18.99,
+#: [barrett,binary] 30.83 / 24.28 / 25.68, [montgomery,win4] 12.96 /
+#: 8.62 / 9.83, [montgomery,binary] 12.52 / 10.43 / 12.93.  The win4
+#: table's shared memory limits TPI 8's Barrett blocks per SM.
+TPI = {"mulmod": 32,
+       "modexp[montgomery,win4]": 8, "modexp[montgomery,binary]": 8,
+       "modexp[barrett,win4]": 16, "modexp[barrett,binary]": 8,
+       "modexp_fixed[montgomery]": 32, "modexp_fixed[barrett]": 32}
 #: From this batch on, mulmod runs MULMOD_FULL_WORDS words per lane (8 or
 #: 16 threads per integer at the main path's widths).  chip_smoke.py's
 #: sweep on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6), device
@@ -49,23 +55,32 @@ TPI = {"modexp": 8, "modexp_fixed": 32, "mulmod": 32}
 #: fewer shuffles per word product.
 MULMOD_FULL_BATCH = 4096
 MULMOD_FULL_WORDS = 8
-#: (threads per integer, words per thread) of every instantiation
+#: (threads per integer, words per thread) of every instantiation of each
+#: body: TPI's group size at every width up to 128 words, and the other
+#: group sizes timed against it at k = 64 (mulmod: every group size at
+#: every width)
+_MODEXP = ((8, 1), (8, 2), (8, 4), (8, 8), (8, 16), (4, 16), (16, 4))
+_MODEXP_FIXED = ((32, 1), (32, 2), (32, 4), (16, 4), (8, 8))
 SHAPES = {
-    "modexp": ((8, 1), (8, 2), (8, 4), (8, 8), (8, 16), (4, 16), (16, 4)),
-    "modexp_fixed": ((32, 1), (32, 2), (32, 4), (16, 4), (8, 8)),
     "mulmod": ((32, 1), (32, 2), (32, 4), (16, 1), (16, 2), (16, 4),
                (16, 8), (8, 1), (8, 2), (8, 4), (8, 8), (8, 16)),
+    "modexp[montgomery,win4]": _MODEXP,
+    "modexp[montgomery,binary]": _MODEXP,
+    "modexp[barrett,win4]": ((16, 1), (16, 2), (16, 4), (16, 8), (8, 8),
+                             (4, 16)),
+    "modexp[barrett,binary]": _MODEXP,
+    "modexp_fixed[montgomery]": _MODEXP_FIXED,
+    "modexp_fixed[barrett]": _MODEXP_FIXED,
 }
-#: threads per block of the cooperative kernels, and of the one-thread ones
+#: threads per block of each kernel
 BLOCK_THREADS = {"modexp": 64, "modexp_fixed": 32, "mulmod": 64}
-ONE_THREAD_BLOCK = 32
 TABLE_ENTRIES = 16
 
 
 @dataclasses.dataclass(frozen=True)
 class Geometry:
-    tpi: int          # threads per big integer (1: one-thread design)
-    words: int        # 32-bit words each thread holds (cooperative bodies)
+    tpi: int          # threads per big integer
+    words: int        # 32-bit words each thread holds
     per_block: int    # big integers per block
     blocks: int
     smem: int         # dynamic shared memory per block, bytes
@@ -90,25 +105,25 @@ def _pow2_at_least(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
 
 
-def group_size(kernel: str, B: int, k: int) -> int:
-    """Threads per integer of a cooperative ``kernel`` at batch B and
-    width k: :data:`TPI`'s, but for a ``mulmod`` batch that fills the
-    card the size that gives each lane :data:`MULMOD_FULL_WORDS` words
-    (at least 8 threads, at most :data:`TPI`'s)."""
-    if kernel == "mulmod" and B >= MULMOD_FULL_BATCH:
-        return min(TPI[kernel],
+def group_size(body: str, B: int, k: int) -> int:
+    """Threads per integer of ``body`` at batch B and width k:
+    :data:`TPI`'s, but for a ``mulmod`` batch that fills the card the size
+    that gives each lane :data:`MULMOD_FULL_WORDS` words (at least 8
+    threads, at most :data:`TPI`'s)."""
+    if body == "mulmod" and B >= MULMOD_FULL_BATCH:
+        return min(TPI[body],
                    max(8, _pow2_at_least(-(-k // MULMOD_FULL_WORDS))))
-    return TPI[kernel]
+    return TPI[body]
 
 
 def launch_geometry(body: str, B: int, k: int,
                     tpi: int | None = None) -> Geometry:
     """Geometry of one launch of ``body`` (one of :data:`BODIES`) over B
     integers of k words.  ``tpi`` picks another instantiated group size
-    than :func:`group_size`'s, to time the candidates; one-thread bodies take
-    none.  Raises ``ValueError`` for a width outside 1..MAX_WORDS, a
-    negative batch, an instantiation that does not exist, or a block that
-    would exceed 1,024 threads or 227 KB of shared memory."""
+    than :func:`group_size`'s, to time the candidates.  Raises
+    ``ValueError`` for a width outside 1..MAX_WORDS, a negative batch, an
+    instantiation that does not exist, or a block that would exceed 1,024
+    threads or 227 KB of shared memory."""
     if body not in BODIES:
         raise ValueError(f"unknown kernel body {body!r}; expected one of "
                          f"{BODIES}")
@@ -118,21 +133,16 @@ def launch_geometry(body: str, B: int, k: int,
     if B < 0:
         raise ValueError(f"negative batch {B}")
     kernel = body.split("[")[0]
-    if body.startswith("modexp[barrett"):
-        if tpi not in (None, 1):
-            raise ValueError(f"{body} runs one thread per integer")
-        threads, tpi, words, smem = ONE_THREAD_BLOCK, 1, k, 0
-    else:
-        tpi = group_size(kernel, B, k) if tpi is None else tpi
-        words = _pow2_at_least(-(-k // tpi))
-        if (tpi, words) not in SHAPES[kernel]:
-            raise ValueError(
-                f"{body} has no instantiation for {tpi} threads per integer "
-                f"at {k} words ({words} per thread); instantiated: "
-                f"{SHAPES[kernel]}")
-        threads = BLOCK_THREADS[kernel]
-        table = kernel == "modexp_fixed" or body == "modexp[montgomery,win4]"
-        smem = TABLE_ENTRIES * words * threads * 4 if table else 0
+    tpi = group_size(body, B, k) if tpi is None else tpi
+    words = _pow2_at_least(-(-k // tpi))
+    if (tpi, words) not in SHAPES[body]:
+        raise ValueError(
+            f"{body} has no instantiation for {tpi} threads per integer "
+            f"at {k} words ({words} per thread); instantiated: "
+            f"{SHAPES[body]}")
+    threads = BLOCK_THREADS[kernel]
+    table = kernel == "modexp_fixed" or body.endswith(",win4]")
+    smem = TABLE_ENTRIES * words * threads * 4 if table else 0
     if threads > MAX_THREADS:
         raise ValueError(f"{body} at {k} words: {threads} threads per block "
                          f"exceed {MAX_THREADS}")

@@ -12,9 +12,8 @@ Port of ``repro.kernels.modexp``:
   (``csrc/modexp_fixed.cu``).  :func:`modexp_fixed_pair_cuda` runs both
   CRT halves of a Paillier exponentiation in one Montgomery launch.
 
-Both ``modexp_fixed`` bodies and the Montgomery bodies of ``modexp`` run
-a group of threads per big integer, the Barrett bodies of ``modexp`` one
-thread; ``geometry.launch_geometry`` sizes every launch.  Each
+Every body runs a group of threads per big integer;
+``geometry.launch_geometry`` sizes every launch.  Each
 ``*_limbs`` function picks by where the base lives: a CUDA tensor
 launches the kernel (or raises), a CPU tensor takes the plain version.
 """

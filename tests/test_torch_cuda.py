@@ -4,19 +4,19 @@ Every body of the three hand-written kernels (mulmod; modexp's four
 (reduction x window) bodies; modexp_fixed's two) is held against its
 plain version on the same CUDA tensors and against Python ints, at small
 widths including an odd-byte modulus with full-width operands, and at
-ragged batch sizes.  The cooperative bodies (a group of threads per big
-integer: mulmod, both modexp_fixed bodies, the Montgomery bodies of
-modexp) are also held, with zero tolerance, at widths k = 8, 16, 32, 63,
+ragged batch sizes.  Every body runs a group of threads per big integer,
+and each is also held, with zero tolerance, at widths k = 8, 16, 32, 63,
 64 and 128 words (a random odd modulus and the top-word edge 2^{32k} - 1
 at each; the 1000-bit odd-byte modulus at k = 32 and a 2000-bit one at
 k = 63, where k is not a multiple of the group), batches {0, 1, 77, one
 more than a block's integers, 192; mulmod also the batch from which it
 runs smaller groups}, and exponents 0, 1 and one whose 4-bit windows
-take all 16 values.  The Barrett bodies (mulmod and
-modexp_fixed[barrett]) also take a modulus whose top word is 1 (Barrett's
-quotient estimate is loosest there) and an even one, and mulmod the
+take all 16 values.  The Barrett bodies also take an even modulus, mulmod
+and modexp_fixed[barrett] a modulus whose top word is 1 (Barrett's
+quotient estimate is loosest there), and mulmod the
 operands 0, m - 1, m and 2^{16 L16} - 1, a broadcast b row, a column
-slice and every instantiated group size at every width.  The two-half
+slice and every instantiated group size at every width; the win4 bodies
+of modexp and modexp_fixed every group size at k = 64.  The two-half
 modexp_fixed launch (both CRT halves in one launch) is held against one
 plain call per half.  A small protocol run on the card is held against
 the same run on the CPU.  These tests need an NVIDIA card and skip
@@ -161,16 +161,22 @@ def _width_modulus(k: int, kind: str) -> int:
     return _odd_modulus(WIDTH_BITS[k])
 
 
-def _cooperative_batches(kernel: str) -> tuple:
-    per_block = geometry.BLOCK_THREADS[kernel] // geometry.TPI[kernel]
+def _cooperative_batches(body: str) -> tuple:
+    per_block = geometry.BLOCK_THREADS[body.split("[")[0]] \
+        // geometry.TPI[body]
     return (0, 1, 77, per_block + 1, 192)
 
 
 @pytest.mark.parametrize("k", sorted(WIDTH_BITS))
-@pytest.mark.parametrize("kind", ("random", "edge"))
-@pytest.mark.parametrize("B", _cooperative_batches("modexp"))
-@pytest.mark.parametrize("method", ("win4", "binary"))
-def test_cooperative_modexp_matches_plain_and_ints(dev, k, kind, B, method):
+@pytest.mark.parametrize("impl, kind, method, B", [
+    (impl, kind, method, B)
+    for impl, kinds in (("montgomery", ("random", "edge")),
+                        ("barrett", ("random", "edge", "even")))
+    for kind in kinds for method in ("win4", "binary")
+    for B in _cooperative_batches(geometry.body_name("modexp", impl,
+                                                     method))])
+def test_cooperative_modexp_matches_plain_and_ints(dev, k, impl, kind, B,
+                                                   method):
     m = _width_modulus(k, kind)
     pack = ops.pack_modulus(m)
     assert pack.L32 == k
@@ -181,19 +187,19 @@ def test_cooperative_modexp_matches_plain_and_ints(dev, k, kind, B, method):
     for i, e in enumerate((0, 1, ALL_WINDOWS)[:B]):
         exps[i] = e
         et[i] = torch.as_tensor(bi.from_ints([e], 4)[0], device=dev)
-    before = build.LAUNCHES[f"modexp[montgomery,{method}]"]
-    out = mx.modexp_cuda(bt, et, dm, method, "montgomery")
+    body = geometry.body_name("modexp", impl, method)
+    before = build.LAUNCHES[body]
+    out = mx.modexp_cuda(bt, et, dm, method, impl)
     torch.cuda.synchronize()
-    assert build.LAUNCHES[f"modexp[montgomery,{method}]"] == \
-        before + (B > 0)
-    assert torch.equal(out, mx.modexp_plain(bt, et, dm, method,
-                                            "montgomery"))
+    assert build.LAUNCHES[body] == before + (B > 0)
+    assert torch.equal(out, mx.modexp_plain(bt, et, dm, method, impl))
     assert bi.to_ints(out) == [pow(x, e, m) for x, e in zip(base, exps)]
 
 
 @pytest.mark.parametrize("k", sorted(WIDTH_BITS))
 @pytest.mark.parametrize("kind", ("random", "edge"))
-@pytest.mark.parametrize("B", _cooperative_batches("modexp_fixed"))
+@pytest.mark.parametrize("B",
+                         _cooperative_batches("modexp_fixed[montgomery]"))
 def test_cooperative_modexp_fixed_matches_plain_and_ints(dev, k, kind, B):
     m = _width_modulus(k, kind)
     pack = ops.pack_modulus(m)
@@ -214,21 +220,24 @@ def test_cooperative_modexp_fixed_matches_plain_and_ints(dev, k, kind, B):
     assert build.LAUNCHES["modexp_fixed[montgomery]"] == before
 
 
-@pytest.mark.parametrize("kernel, tpi", [
-    (kernel, tpi) for kernel, shapes in sorted(geometry.SHAPES.items())
-    for tpi in sorted({t for t, _ in shapes})])
-def test_every_group_size_matches_plain_at_main_width(dev, kernel, tpi):
+@pytest.mark.parametrize("body, tpi", [
+    (body, tpi) for body in ("modexp[montgomery,win4]",
+                             "modexp[barrett,win4]",
+                             "modexp_fixed[montgomery]")
+    for tpi in sorted({t for t, _ in geometry.SHAPES[body]})])
+def test_every_group_size_matches_plain_at_main_width(dev, body, tpi):
     """The group sizes timed against the chosen one, at k = 64."""
     m = _odd_modulus(2048)
     pack = ops.pack_modulus(m)
     dm = pack.on(dev)
     rng = random.Random(tpi)
     base, bt = _rows(rng, 77, pack.L16, dev)
-    if kernel == "modexp":
+    if body.startswith("modexp["):
+        impl = body[len("modexp["):].split(",")[0]
         exps, et = _rows(rng, 77, 4, dev)
-        out = mx.modexp_cuda(bt, et, dm, "win4", "montgomery", tpi=tpi)
+        out = mx.modexp_cuda(bt, et, dm, "win4", impl, tpi=tpi)
         want = [pow(x, e, m) for x, e in zip(base, exps)]
-        plain = mx.modexp_plain(bt, et, dm, "win4", "montgomery")
+        plain = mx.modexp_plain(bt, et, dm, "win4", impl)
     else:
         e = rng.getrandbits(2048)
         windows = ops.mg.exp_windows(e)
@@ -344,7 +353,7 @@ def test_mulmod_every_group_size_at_every_width(dev, k, kind, tpi):
 
 @pytest.mark.parametrize("k", sorted(WIDTH_BITS))
 @pytest.mark.parametrize("kind", BARRETT_KINDS)
-@pytest.mark.parametrize("B", _cooperative_batches("modexp_fixed"))
+@pytest.mark.parametrize("B", _cooperative_batches("modexp_fixed[barrett]"))
 def test_cooperative_modexp_fixed_barrett_matches_plain_and_ints(dev, k,
                                                                  kind, B):
     m = _width_modulus(k, kind)
@@ -368,7 +377,8 @@ def test_cooperative_modexp_fixed_barrett_matches_plain_and_ints(dev, k,
 
 
 @pytest.mark.parametrize("tpi", sorted({t for t, _ in
-                                        geometry.SHAPES["modexp_fixed"]}))
+                                        geometry.SHAPES[
+                                            "modexp_fixed[barrett]"]}))
 @pytest.mark.parametrize("kind", ("random", "even"))
 def test_modexp_fixed_barrett_every_group_size(dev, tpi, kind):
     """The Barrett body at the group sizes timed against the chosen one,

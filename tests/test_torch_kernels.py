@@ -353,42 +353,39 @@ def test_launch_geometry_covers_every_width(body):
     """For every width 1..MAX_WORDS and main-path batch: an instantiated
     shape that holds k words, whole warps, blocks that cover B exactly
     once, and shared memory and threads within Hopper's per-block limits.
-    Only the Barrett bodies of modexp run one thread per integer."""
+    Every body runs a group of threads per integer; every win4 and fixed
+    ladder keeps a 16-entry table."""
     kernel = body.split("[")[0]
-    cooperative = not body.startswith("modexp[barrett")
+    table = kernel == "modexp_fixed" or body.endswith(",win4]")
     for k in range(1, geometry.MAX_WORDS + 1):
         for B in MAIN_BATCHES:
             g = geometry.launch_geometry(body, B, k)
             assert g.threads % 32 == 0 and g.threads <= geometry.MAX_THREADS
             assert g.smem <= geometry.MAX_SMEM_BYTES
             assert g.blocks * g.per_block >= B > (g.blocks - 1) * g.per_block
-            if cooperative:
-                assert g.tpi == geometry.group_size(kernel, B, k)
-                if kernel == "mulmod" and B >= geometry.MULMOD_FULL_BATCH:
-                    # the fewest threads (at least 8) that hold k words
-                    # at 8 words per lane
-                    assert g.words <= 8 and (g.tpi == 8 or
-                                             g.tpi * 8 >= k > g.tpi * 4)
-                else:
-                    assert g.tpi == geometry.TPI[kernel]
-                assert g.threads == geometry.BLOCK_THREADS[kernel]
-                assert (g.tpi, g.words) in geometry.SHAPES[kernel]
-                assert g.tpi * g.words >= k > g.tpi * g.words // 2 or \
-                    g.words == 1
-                table = kernel == "modexp_fixed" or \
-                    body == "modexp[montgomery,win4]"
-                assert g.smem == (16 * g.words * g.threads * 4 if table
-                                  else 0)
+            assert g.tpi == geometry.group_size(body, B, k)
+            if kernel == "mulmod" and B >= geometry.MULMOD_FULL_BATCH:
+                # the fewest threads (at least 8) that hold k words at 8
+                # words per lane
+                assert g.words <= 8 and (g.tpi == 8 or
+                                         g.tpi * 8 >= k > g.tpi * 4)
             else:
-                assert (g.tpi, g.per_block, g.smem) == (1, 32, 0)
+                assert g.tpi == geometry.TPI[body]
+            assert g.threads == geometry.BLOCK_THREADS[kernel]
+            assert (g.tpi, g.words) in geometry.SHAPES[body]
+            assert g.tpi * g.words >= k > g.tpi * g.words // 2 or \
+                g.words == 1
+            assert g.smem == (16 * g.words * g.threads * 4 if table else 0)
 
 
 @pytest.mark.parametrize("body, B, k, want", [
     # a warp per p^2 residue in its own block, both fixed bodies
     ("modexp_fixed[montgomery]", 192, 64, (32, 2, 1, 192, 4096)),
     ("modexp_fixed[barrett]", 192, 64, (32, 2, 1, 192, 4096)),
-    # eight threads per residue for an edge's matvec
+    # eight threads per residue for an edge's matvec, sixteen for the
+    # Barrett win4 body of the Barrett arm (REPRO_REDUCE_IMPL=barrett)
     ("modexp[montgomery,win4]", 36_864, 64, (8, 8, 8, 4608, 32768)),
+    ("modexp[barrett,win4]", 36_864, 64, (16, 4, 4, 9216, 16384)),
     # mulmod: the sum, blinding and CRT multiplies, the tree's top level
     # on n^2 and the reductions of an edge's matvec into p^2
     ("mulmod", 192, 64, (32, 2, 2, 96, 0)),
@@ -403,11 +400,8 @@ def test_launch_geometry_main_path_shapes(body, B, k, want):
 
 
 @pytest.mark.parametrize("body, tpi", [
-    (geometry.body_name(kernel, impl), tpi)
-    for kernel, shapes in sorted(geometry.SHAPES.items())
-    for impl in (("montgomery", "barrett") if kernel == "modexp_fixed"
-                 else ("montgomery",))
-    for tpi in sorted({t for t, _ in shapes})])
+    (body, tpi) for body in geometry.BODIES
+    for tpi in sorted({t for t, _ in geometry.SHAPES[body]})])
 def test_launch_geometry_group_size_candidates(body, tpi):
     """Every group size timed against the chosen one holds 64 words."""
     g = geometry.launch_geometry(body, 192, 64, tpi=tpi)
@@ -432,7 +426,7 @@ def test_mulmod_candidates_cover_every_width(tpi):
     ("modexp[montgomery,win4]", -1, 64, None, "negative batch"),
     ("modexp[montgomery,win4]", 5, 64, 32, "no instantiation"),
     ("modexp_fixed[montgomery]", 5, 128, 8, "no instantiation"),
-    ("modexp[barrett,win4]", 5, 64, 8, "one thread"),
+    ("modexp[barrett,win4]", 5, 64, 32, "no instantiation"),
     ("mulmod", 5, 64, 4, "no instantiation"),
     ("modexp[sideways,win4]", 5, 64, None, "unknown kernel body"),
 ])

@@ -3,7 +3,9 @@
 LASSO at the conformance sizes (K, N, ITERS, KEY_BITS = 4, 32, 3, 128 —
 ``tests/test_conformance.py``) runs through ``repro.core.protocol`` and
 ``repro_torch.core.protocol`` (``device="cpu"``: the kernels' plain
-versions) under three arms: plain, gold batched and gold scalar.  The two
+versions) under four arms: plain, gold batched, gold scalar and gold
+batched under ``REPRO_REDUCE_IMPL=barrett`` (Barrett ladders throughout,
+set for both packages for that arm only).  The two
 packages must agree with zero tolerance — integer and float64 work in
 the same order — in the history bytes, the ordered ciphertext stream,
 the blinding rng's final state and the RunReport core.
@@ -39,7 +41,11 @@ K, N, ITERS, KEY_BITS = 4, 32, 3, 128
 SPEC = dict(delta=1e6, zmin=-8.0, zmax=8.0)
 ARMS = {"plain": dict(cipher="plain"),
         "gold_scalar": dict(cipher="gold", gold_batch=False),
-        "gold_batch": dict(cipher="gold", gold_batch=True)}
+        "gold_batch": dict(cipher="gold", gold_batch=True),
+        "gold_batch_barrett": dict(cipher="gold", gold_batch=True)}
+#: the reduction each arm runs under (REPRO_REDUCE_IMPL); default otherwise
+ARM_REDUCE = {"gold_batch_barrett": "barrett"}
+GOLD_ARMS = [arm for arm, kw in ARMS.items() if kw["cipher"] == "gold"]
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
 
@@ -94,6 +100,10 @@ def runs(inst):
         mp.setattr(module, "make_box", recording_make_box)
         try:
             for arm, kw in ARMS.items():
+                if arm in ARM_REDUCE:
+                    mp.setenv("REPRO_REDUCE_IMPL", ARM_REDUCE[arm])
+                else:
+                    mp.delenv("REPRO_REDUCE_IMPL", raising=False)
                 extra = {"device": "cpu"} if pkg == "port" else {}
                 ctm.reset_conversion_stats()
                 res = module.run_protocol(inst.A, inst.y,
@@ -122,7 +132,7 @@ def test_ciphertext_stream_equal_reference(runs, arm):
     assert port.enc_stream == ref.enc_stream
 
 
-@pytest.mark.parametrize("arm", ("gold_scalar", "gold_batch"))
+@pytest.mark.parametrize("arm", GOLD_ARMS)
 def test_rng_state_equal_reference(runs, arm):
     assert runs["port", arm][1].rng.getstate() == \
         runs["ref", arm][1].rng.getstate()
