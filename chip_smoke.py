@@ -43,8 +43,27 @@ package, and:
    reference's Barrett arm, set for this phase only): the same checks
    against the same plain history, with modexp[barrett,win4] and
    modexp_fixed[barrett] launched and no Montgomery body;
-8. prints the kernel table as one JSON line, then as its last line
-   ``{"ok": true, "device": {...}}``.
+8. runs ``modexp`` at the shapes the protocol surface adds: the ``vec``
+   arm's matvec at n^2 (k = 128 words, B = 36,864, 64-bit exponents;
+   Montgomery and Barrett win4, the plain version on the first 1,024
+   rows) and the collaborative unmask factors at p^2 with 2,048-bit
+   exponents (B = 192), each timed and held against its plain version
+   and Python ints, with its instantiation's registers and spills;
+9. runs the protocol surface at the main path's key and cut, each with
+   the launch counts set to 0 just before it and read just after (every
+   body of the Montgomery main path must launch): the ``vec`` arm
+   (history equal to the plain arm's, its ciphertexts and final rng
+   state equal to the gold arm's of step 4); ``collaborative=True``
+   (history equal to the plain arm's, one decryption assist per edge per
+   round) and ``collab_encrypt_vec`` on 192 plaintexts against scalar
+   ``collaborative_encrypt`` on a sample; each of the seven other
+   workload families (spec from ``calibrate_spec``, every edge's block
+   192 wide, 2 iterations, the streaming family 3) against its plain
+   arm; LASSO under ``ChurnSchedule.quarter(K, 5)`` with recycled
+   updates against its plain arm; and a ``health=True`` run;
+10. prints the kernel table as one JSON line (each body's launches on the
+    main path, on the Barrett arm and on each path of step 9), then as
+    its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
 result.  Exact integer work: the tolerance of every comparison is zero.
@@ -58,6 +77,7 @@ import subprocess
 import sys
 import time
 from collections import defaultdict
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -69,6 +89,7 @@ KEY_BITS, DELTA, K, RHO, LAM = 2048, 1e15, 3, 1.0, 1.0
 N, M, ITERS, SEED = 576, 64, 3, 0
 NK = N // K
 N_SCALED = 1152                 # one more round at Nk = 384
+DEVICE = "cuda"                 # where every protocol phase runs
 
 # H100 SXM peaks (NVIDIA data sheet): HBM 3.35 TB/s; fp32 67 TFLOP/s
 # counts 2 flops per FMA on 128 FMA lanes per SM, and the 32-bit integer
@@ -186,6 +207,7 @@ def build_kernels(build):
         for tail in bodies:
             assert any(n.startswith(template + "<") and n.endswith(tail)
                        for n in rows), f"no {template}<...{tail}"
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -510,7 +532,7 @@ def lasso_config(protocol, QuantSpec, cipher, iters):
     return protocol.ProtocolConfig(K=K, rho=RHO, lam=LAM, iters=iters,
                                    spec=spec, cipher=cipher,
                                    key_bits=KEY_BITS, seed=SEED,
-                                   device="cuda")
+                                   device=DEVICE)
 
 
 @contextlib.contextmanager
@@ -537,18 +559,15 @@ def run_plain(protocol, QuantSpec, make_lasso):
     return res.history
 
 
-def run_main_path(protocol, gold, bi, build, QuantSpec, make_lasso,
-                  plain_history, bodies, absent=()):
-    """The gold main path with the launch counts set to 0 just before it
-    and read just after: every body of ``bodies`` launched, none of
-    ``absent``; its history equal to the plain arm's, and a sample of the
-    first round's ciphertexts equal to scalar ``encrypt_crt``."""
-    inst = make_lasso(M, N, sparsity=0.1, noise=0.01, seed=SEED)
+def drive(protocol, build, inst, cfg, **kw):
+    """One ``run_protocol`` call with a recording box, the launch counts
+    set to 0 just before it and read just after; returns the result, the
+    box, the wall seconds and the launches by body and by shape."""
     rec = {}
     real_make_box = protocol.make_box
 
-    def recording_make_box(*a, **kw):
-        box, key = real_make_box(*a, **kw)
+    def recording_make_box(*a, **kw_):
+        box, key = real_make_box(*a, **kw_)
         rec["box"] = RecordingBox(box)
         return rec["box"], key
 
@@ -556,26 +575,30 @@ def run_main_path(protocol, gold, bi, build, QuantSpec, make_lasso,
     try:
         build.reset_launches()
         t0 = time.perf_counter()
-        gold_res = protocol.run_protocol(
-            inst.A, inst.y, lasso_config(protocol, QuantSpec, "gold", ITERS))
+        res = protocol.run_protocol(inst.A, inst.y, cfg, **kw)
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(build.LAUNCHES)
         shape_launches = dict(build.SHAPE_LAUNCHES)
     finally:
         protocol.make_box = real_make_box
-    assert gold_res.history.shape == (ITERS, N)
-    assert np.all(np.isfinite(gold_res.history))
-    assert gold_res.history.tobytes() == plain_history.tobytes(), \
-        "gold history differs from the plain arm"
+    return res, rec["box"], wall, launches, shape_launches
+
+
+def check_launches(path, launches, bodies, absent=()):
     for name in bodies:
         assert launches[name] > 0, \
-            f"kernel body {name} was not launched on the main path"
+            f"kernel body {name} was not launched on the {path}"
     for name in absent:
         assert launches[name] == 0, \
-            f"kernel body {name} was launched {launches[name]} times"
-    # replay the blinding rng: the share phase's K encryptions, then the
-    # first round's (z, v) pair per edge; sample each call's first rows
-    box = rec["box"]
+            f"kernel body {name} was launched {launches[name]} times on " \
+            f"the {path}"
+
+
+def check_first_round(box, gold, bi):
+    """Replay the blinding rng: the share phase's K encryptions, then the
+    first round's (z, v) pair per edge; each of the first round's calls'
+    first rows must equal scalar ``encrypt_crt``.  Returns the count."""
     rng = random.Random(SEED)
     key = gold.keygen(KEY_BITS, rng)
     assert key == box.key
@@ -583,12 +606,32 @@ def run_main_path(protocol, gold, bi, build, QuantSpec, make_lasso,
     for idx, (ms, c) in enumerate(box.calls[:3 * K]):
         rs = [gold.rand_r(key, rng) for _ in ms]
         if idx >= K:                           # the first round's calls
-            got = bi.to_ints(c.limbs[:4])
+            limbs = c.limbs if hasattr(c, "limbs") else c
+            got = bi.to_ints(limbs[:4])
             want = [gold.encrypt_crt(key, int(m), r)
                     for m, r in zip(ms[:4], rs[:4])]
             assert got == want, f"ciphertext mismatch in call {idx}"
             checked += len(got)
-    return gold_res, wall, launches, shape_launches, checked
+    return checked
+
+
+def run_main_path(protocol, gold, bi, build, QuantSpec, make_lasso,
+                  plain_history, bodies, absent=()):
+    """The gold main path with the launch counts set to 0 just before it
+    and read just after: every body of ``bodies`` launched, none of
+    ``absent``; its history equal to the plain arm's, and a sample of the
+    first round's ciphertexts equal to scalar ``encrypt_crt``."""
+    inst = make_lasso(M, N, sparsity=0.1, noise=0.01, seed=SEED)
+    gold_res, box, wall, launches, shape_launches = drive(
+        protocol, build, inst,
+        lasso_config(protocol, QuantSpec, "gold", ITERS))
+    assert gold_res.history.shape == (ITERS, N)
+    assert np.all(np.isfinite(gold_res.history))
+    assert gold_res.history.tobytes() == plain_history.tobytes(), \
+        "gold history differs from the plain arm"
+    check_launches("main path", launches, bodies, absent)
+    checked = check_first_round(box, gold, bi)
+    return gold_res, wall, launches, shape_launches, checked, box
 
 
 def report_path(wall, secs, checked, launches, shape_launches):
@@ -728,11 +771,329 @@ def run_scaled(protocol, QuantSpec, make_lasso):
     return gold_res.stats["seconds"]
 
 
+# ---------------------------------------------------------------------------
+# the protocol surface: new kernel shapes, the vec arm, Algorithm 3, the
+# other families, churn and the health watchers
+# ---------------------------------------------------------------------------
+
+#: rows of the n^2 modexp batch held against the plain version (the plain
+#: version of the whole batch would take about half a minute)
+NSQ_ROWS = 1024
+#: exponent bits of the collaborative mode's unmask factors, -t mod phi(p^2)
+LONG_EXP_BITS = 2048
+FAMILIES = ("ridge", "logistic", "elastic_net", "power_grid",
+            "consensus_lasso", "consensus_logistic", "streaming_lasso")
+ROW_SPLIT = ("consensus_lasso", "consensus_logistic")
+FAMILY_ITERS = 2
+CHURN_ITERS = 5
+#: paths added by the protocol-surface slice, in the order they run; each
+#: launches the Montgomery main path's three bodies
+SURFACE_PATHS = ("vec_arm", "collab", "families", "churn", "health")
+
+
+def once_ms(fn):
+    """Milliseconds of one call of ``fn`` (CUDA events, no warm-up; for
+    the plain versions, whose launches are many and small) and its
+    result."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    result = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop), result
+
+
+def time_new_shapes(key, packs, bi, geometry, mx, ptxas, dev):
+    """``modexp`` at the shapes this slice's paths launch and no earlier
+    path did: the vec arm's matvec at n^2 (k = 128 words, B = Nk^2,
+    64-bit exponents; Montgomery and Barrett win4, the plain version on
+    the first NSQ_ROWS rows), and the collaborative mode's unmask factors
+    at p^2 with 2,048-bit exponents (B = Nk).  Each held against its
+    plain version (zero tolerance) and Python ints on a sample."""
+    rng = random.Random(SEED + 3)
+    rows_out = []
+
+    def rows(B, L, below=None):
+        ints = [rng.randrange(below) if below else rng.getrandbits(16 * L)
+                for _ in range(B)]
+        return ints, torch.as_tensor(bi.from_ints(ints, L), device=dev)
+
+    cases = []
+    pack = packs["n2"]
+    B = NK * NK
+    cases += [(f"modexp[{impl},win4]", impl, pack, B, 64, NSQ_ROWS)
+              for impl in ("montgomery", "barrett")]
+    cases.append(("modexp[montgomery,win4]", "montgomery", packs["p2"], NK,
+                  LONG_EXP_BITS, NK))
+    for name, impl, pack, B, exp_bits, plain_rows in cases:
+        plain_rows = min(plain_rows, B)
+        dm = pack.on(dev)
+        base, bt = rows(B, pack.L16)
+        le = exp_bits // 16
+        below = key.phi_p2 if exp_bits == LONG_EXP_BITS else None
+        exps, et = rows(B, le, below)
+        want = [pow(x, e, pack.m_int) for x, e in zip(base[:4], exps[:4])]
+        ms, event_ms, got = kernel_ms(
+            lambda: mx.modexp_cuda(bt, et, dm, "win4", impl), 5,
+            "modexp_kernel")
+        plain_ms, ref = once_ms(lambda: mx.modexp_plain(
+            bt[:plain_rows], et[:plain_rows], dm, "win4", impl))
+        err = compare(bi, name, got[:plain_rows], ref, want)
+        mont = impl == "montgomery"
+        bnd, by = bound_ms(
+            word_products("modexp", pack.L32, exp_bits=exp_bits, mont=mont),
+            B, B * (2 * pack.L16 + le) * 4)
+        g = geometry.launch_geometry(name, B, pack.L32)
+        inst_name = (f"modexp_kernel<{g.tpi},{g.words},true,"
+                     f"{'true' if mont else 'false'}>")
+        regs = ptxas.get(inst_name, {})
+        assert regs.get("spill_stores") == 0 and \
+            regs.get("stack", MAX_STACK) < MAX_STACK, (inst_name, regs)
+        row = dict(body=name, B=B, k=pack.L32, exp_bits=exp_bits, ms=ms,
+                   event_ms=event_ms, plain_ms=plain_ms,
+                   plain_rows=plain_rows, max_abs_err=err, bound_ms=bnd,
+                   bound_by=by, instantiation=inst_name, **regs)
+        rows_out.append(row)
+        log(f"  {name} B={B} k={pack.L32} {exp_bits}-bit exps "
+            f"({inst_name}: {regs.get('registers')} registers, "
+            f"{regs.get('stack')} B stack, {regs.get('spill_stores')} B "
+            f"spills): {ms:.4f} ms on the device, {event_ms:.4f} ms per "
+            f"call (plain {plain_ms:.1f} ms on {plain_rows} rows, bound "
+            f"{bnd:.4f} ms), equal")
+    return rows_out
+
+
+def report_surface(path, res, wall, launches, shape_launches):
+    secs = res.stats["seconds"]
+    log(f"  {path}: wall {wall:.2f} s; init {secs['init']:.3f} s, share "
+        f"{secs['share']:.3f} s, rounds "
+        + ", ".join(f"{t:.4f}" for t in secs["rounds"]) + " s")
+    log(f"  {path} launches {launches}; by shape " + json.dumps(
+        [{"body": body, "B": B, "k": k, "launches": n}
+         for (body, B, k), n in sorted(shape_launches.items())]))
+
+
+def run_vec_arm(protocol, gold, bi, build, QuantSpec, make_lasso,
+                plain_history, gold_box):
+    """The vec arm at the main path's cut: its history equal to the plain
+    arm's, its ordered ciphertext stream and final rng state equal to the
+    gold arm's (same seed), the first round's ciphertexts sampled against
+    scalar ``encrypt_crt``."""
+    inst = make_lasso(M, N, sparsity=0.1, noise=0.01, seed=SEED)
+    res, box, wall, launches, shapes = drive(
+        protocol, build, inst, lasso_config(protocol, QuantSpec, "vec",
+                                            ITERS))
+    assert res.history.tobytes() == plain_history.tobytes(), \
+        "vec history differs from the plain arm"
+    check_launches("vec arm", launches, MAIN_PATH_BODIES)
+    assert len(box.calls) == len(gold_box.calls) == K * (1 + 2 * ITERS)
+    for idx, ((mv, cv), (mg_, cg)) in enumerate(zip(box.calls,
+                                                   gold_box.calls)):
+        assert np.array_equal(mv, mg_) and torch.equal(cv, cg.limbs), \
+            f"vec ciphertexts differ from the gold arm's in call {idx}"
+    assert box.rng.getstate() == gold_box.rng.getstate(), \
+        "vec and gold arms left the blinding rng in different states"
+    assert box.plain_bits > 62                 # Delta = 1e15: 109 bits
+    checked = check_first_round(box, gold, bi)
+    report_surface("vec arm", res, wall, launches, shapes)
+    log(f"  vec arm: history equals the plain arm bit for bit; "
+        f"{len(box.calls)} encryptions equal the gold arm's limb for limb, "
+        f"same rng state; {checked} sampled ciphertexts equal scalar "
+        f"encrypt_crt")
+    return res, launches, shapes
+
+
+def run_collaborative(protocol, gold, pb, build, QuantSpec, make_lasso,
+                      plain_history, main_shapes):
+    """Algorithm 3 on the main path's instance: history equal to the
+    plain arm's, one decryption assist (``reduce_p2``) per edge per round
+    counted with its launches; then ``collab_encrypt_vec`` on Nk
+    plaintexts equal to scalar ``collaborative_encrypt`` on a sample of
+    4, the scalar run replaying the draws of a second rng of the same
+    seed."""
+    inst = make_lasso(M, N, sparsity=0.1, noise=0.01, seed=SEED)
+    assists = []
+    real = protocol.EdgeNode.reduce_p2
+
+    def counted(self, x_hat):
+        out = real(self, x_hat)
+        assists.append(len(out))
+        return out
+
+    protocol.EdgeNode.reduce_p2 = counted
+    try:
+        cfg = lasso_config(protocol, QuantSpec, "gold", ITERS)
+        res, box, wall, launches, shapes = drive(
+            protocol, build, inst, replace(cfg, collaborative=True))
+    finally:
+        protocol.EdgeNode.reduce_p2 = real
+    assert res.history.tobytes() == plain_history.tobytes(), \
+        "collaborative history differs from the plain arm"
+    check_launches("collaborative path", launches, MAIN_PATH_BODIES)
+    assert assists == [NK] * (K * ITERS), assists
+    extra = {f"{b} B={B} k={k}": n - main_shapes.get((b, B, k), 0)
+             for (b, B, k), n in sorted(shapes.items())
+             if n != main_shapes.get((b, B, k), 0)}
+    report_surface("collaborative", res, wall, launches, shapes)
+    log(f"  collaborative: history equals the plain arm; {len(assists)} "
+        f"decryption assists of {NK} rows; launches beyond the main "
+        f"path's: {json.dumps(extra)}")
+
+    # collab_encrypt_vec: batched master and edge against the scalar math
+    key = box.key
+    edge = protocol.EdgeNode(0, cfg.spec)
+    edge.collab_setup(key.p2, key.phi_p2, key.g, batch=True, device=DEVICE)
+    pick = random.Random(SEED + 4)
+    ms = np.array([pick.randrange(10 ** 15) for _ in range(NK)],
+                  dtype=object)
+    rng1 = random.Random(SEED + 5)
+    build.reset_launches()
+    t0 = time.perf_counter()
+    out = protocol.collab_encrypt_vec(key, edge, ms, rng1, device=DEVICE)
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    enc_launches = dict(build.LAUNCHES)
+    enc_shapes = dict(build.SHAPE_LAUNCHES)
+    rng2 = random.Random(SEED + 5)            # replay the same draws
+    masks = [rng2.getrandbits(64) for _ in ms]
+    rs = pb.rand_r_vec(key, len(ms), rng2)
+    assert rng1.getstate() == rng2.getstate()
+    sample = (0, 1, NK // 2, NK - 1)
+    scalar_edge = protocol.EdgeNode(0, cfg.spec)
+    scalar_edge.collab_setup(key.p2, key.phi_p2, key.g, batch=False)
+    want = protocol.collaborative_encrypt(
+        key, scalar_edge, ms[list(sample)],
+        _Replay([masks[i] for i in sample], [rs[i] for i in sample]))
+    assert [out[i] for i in sample] == want, \
+        "collab_encrypt_vec differs from scalar collaborative_encrypt"
+    assert [gold.decrypt_crt(key, out[i]) for i in sample] == \
+        [int(ms[i]) for i in sample]
+    # the r^n blindings go through modexp_crt_vec with per-element
+    # exponents, as the reference's do: modexp, not modexp_fixed
+    check_launches("collab_encrypt_vec", enc_launches,
+                   ("modexp[montgomery,win4]", "mulmod"))
+    log(f"  collab_encrypt_vec: {NK} plaintexts in {enc_s:.3f} s, equal to "
+        f"scalar collaborative_encrypt on {len(sample)} samples, same rng "
+        f"state; launches by shape " + json.dumps(
+            [{"body": b, "B": B, "k": k, "launches": n}
+             for (b, B, k), n in sorted(enc_shapes.items())]))
+    return res, launches, shapes, enc_launches
+
+
+class _Replay:
+    """Hands scalar ``collaborative_encrypt`` recorded draws: its 64-bit
+    masks, then its blinding r (units, so ``rand_r`` takes each first)."""
+
+    def __init__(self, masks, rs):
+        self._masks, self._rs = iter(masks), iter(rs)
+
+    def getrandbits(self, k):
+        return next(self._masks)
+
+    def randrange(self, lo, hi):
+        return next(self._rs)
+
+
+def run_families(protocol, build, workloads):
+    """Each other family, gold arm at the main path's key, its spec from
+    ``calibrate_spec``, every edge's block Nk = 192 (row split: model
+    width 192, M rows per edge), FAMILY_ITERS iterations (the streaming
+    family one more, so its first re-share runs): history equal to the
+    family's plain arm.  The consensus families sum through
+    ``paillier_aggregate`` on the card.  Launches are summed over the
+    families."""
+    total = defaultdict(int)
+    shapes_total = defaultdict(int)
+    out = {}
+    for name in FAMILIES:
+        wl = workloads.get_default(name)
+        row = name in ROW_SPLIT
+        inst = wl.make_instance(K * M if row else M, NK if row else N, K,
+                                seed=SEED)
+        iters = FAMILY_ITERS + 1 if wl.streaming else FAMILY_ITERS
+        spec = wl.calibrate_spec(inst.A, inst.y, K, iters)
+        cfg = protocol.ProtocolConfig(
+            K=K, rho=wl.rho, lam=wl.lam, iters=iters, spec=spec,
+            cipher="gold", key_bits=KEY_BITS, seed=SEED, workload=name,
+            device=DEVICE)
+        plain = protocol.run_protocol(inst.A, inst.y,
+                                      replace(cfg, cipher="plain"),
+                                      workload=wl)
+        res, box, wall, launches, shapes = drive(protocol, build, inst, cfg,
+                                                 workload=wl)
+        assert res.history.shape == (iters, K * NK)
+        assert np.all(np.isfinite(res.history))
+        assert res.history.tobytes() == plain.history.tobytes(), \
+            f"{name}: gold history differs from the plain arm"
+        check_launches(f"{name} path", launches, MAIN_PATH_BODIES)
+        for body, n in launches.items():
+            total[body] += n
+        for shape, n in shapes.items():
+            shapes_total[shape] += n
+        secs = res.stats["seconds"]
+        out[name] = dict(iters=iters, delta=spec.delta, zmax=spec.zmax,
+                         rounds_s=secs["rounds"], share_s=secs["share"],
+                         reshare_events=res.stats["reshare_events"],
+                         edge_to_master_bytes=res.stats["traffic_bytes"][
+                             "edge->master"],
+                         launches=launches)
+        log(f"  {name}: Delta={spec.delta:g} zmax={spec.zmax:g}, rounds "
+            + ", ".join(f"{t:.4f}" for t in secs["rounds"])
+            + f" s, re-shares {res.stats['reshare_events']}; history equals "
+            f"the plain arm; launches {launches}")
+    return out, dict(total), dict(shapes_total)
+
+
+def run_churn(protocol, churn_mod, build, QuantSpec, make_lasso):
+    """LASSO gold under ``ChurnSchedule.quarter(K, 5)`` with recycled
+    updates at Nk = 192: history equal to the plain arm under the same
+    schedule."""
+    inst = make_lasso(M, N, sparsity=0.1, noise=0.01, seed=SEED)
+    sched = churn_mod.ChurnSchedule.quarter(K, CHURN_ITERS)
+    cfg = replace(lasso_config(protocol, QuantSpec, "gold", CHURN_ITERS),
+                  churn=sched, recycle=True)
+    plain = protocol.run_protocol(inst.A, inst.y,
+                                  replace(cfg, cipher="plain"))
+    res, box, wall, launches, shapes = drive(protocol, build, inst, cfg)
+    assert res.history.tobytes() == plain.history.tobytes(), \
+        "churned gold history differs from the plain arm"
+    churn_sec = res.stats["churn"]
+    assert churn_sec["leaves"] == churn_sec["rejoins"] == 1, churn_sec
+    assert churn_sec == plain.stats["churn"], (churn_sec,
+                                               plain.stats["churn"])
+    check_launches("churn path", launches, MAIN_PATH_BODIES)
+    report_surface("churn", res, wall, launches, shapes)
+    log(f"  churn: schedule {sched!r}; leaves {churn_sec['leaves']}, "
+        f"rejoins {churn_sec['rejoins']}, recycled {churn_sec['recycled']}; "
+        f"history equals the plain arm under the same schedule")
+    return res, launches, shapes
+
+
+def run_health(protocol, build, QuantSpec, make_lasso, plain_history):
+    """One gold LASSO run of the main path with the health watchers on."""
+    inst = make_lasso(M, N, sparsity=0.1, noise=0.01, seed=SEED)
+    res, box, wall, launches, shapes = drive(
+        protocol, build, inst,
+        lasso_config(protocol, QuantSpec, "gold", ITERS), health=True)
+    assert res.history.tobytes() == plain_history.tobytes()
+    check_launches("health path", launches, MAIN_PATH_BODIES)
+    h = res.stats["health"]
+    assert h["counters"]["rounds"] == ITERS, h
+    report_surface("health", res, wall, launches, shapes)
+    log("  health: " + json.dumps(h))
+    return res, launches, shapes
+
+
 def main():
     require_card()
     sys.path.insert(0, os.path.join(REPO, "src"))
+    from repro_torch import workloads
     from repro_torch.core import bigint as bi
+    from repro_torch.core import churn as churn_mod
     from repro_torch.core import paillier as gold
+    from repro_torch.core import paillier_batch as pb
     from repro_torch.core import protocol
     from repro_torch.core.quantization import QuantSpec
     from repro_torch.data.synthetic import make_lasso
@@ -743,7 +1104,7 @@ def main():
     dev = torch.device("cuda")
     t_start = time.perf_counter()
 
-    build_kernels(build)
+    ptxas = build_kernels(build)
     key = gold.keygen(KEY_BITS, random.Random(SEED))
     log("kernels vs plain versions on the card:")
     packs = check_kernels(key, bi, ops, mg, lm, mx, dev)
@@ -756,7 +1117,7 @@ def main():
     log(f"main path: gold LASSO, {KEY_BITS}-bit key, Delta={DELTA:g}, "
         f"K={K}, N={N}, M={M}, iters={ITERS}")
     plain_history = run_plain(protocol, QuantSpec, make_lasso)
-    res, wall, launches, shape_launches, checked = run_main_path(
+    res, wall, launches, shape_launches, checked, gold_box = run_main_path(
         protocol, gold, bi, build, QuantSpec, make_lasso, plain_history,
         MAIN_PATH_BODIES)
     secs = res.stats["seconds"]
@@ -775,12 +1136,36 @@ def main():
     # after the Montgomery phases, so none of their timings follows it
     log("main path under REPRO_REDUCE_IMPL=barrett:")
     with environ("REPRO_REDUCE_IMPL", "barrett"):
-        bres, bwall, blaunches, bshape_launches, bchecked = run_main_path(
+        bres, bwall, blaunches, bshape_launches, bchecked, _ = run_main_path(
             protocol, gold, bi, build, QuantSpec, make_lasso, plain_history,
             BARRETT_ARM_BODIES,
             absent=[b for b in geometry.BODIES if "montgomery" in b])
     report_path(bwall, bres.stats["seconds"], bchecked, blaunches,
                 bshape_launches)
+
+    # the protocol surface, after every earlier phase
+    log("modexp at this slice's new shapes, timed:")
+    new_shapes = time_new_shapes(key, packs, bi, geometry, mx, ptxas, dev)
+    surface = {}
+    log("vec arm of the main path:")
+    _, surface["vec_arm"], vshapes = run_vec_arm(
+        protocol, gold, bi, build, QuantSpec, make_lasso, plain_history,
+        gold_box)
+    log("Algorithm 3 (collaborative=True) on the main path's instance:")
+    _, surface["collab"], cshapes, enc_launches = run_collaborative(
+        protocol, gold, pb, build, QuantSpec, make_lasso, plain_history,
+        shape_launches)
+    log(f"the other families, gold arm, {KEY_BITS}-bit keys, Nk={NK}:")
+    families, surface["families"], _ = run_families(protocol, build,
+                                                    workloads)
+    log(f"churn: LASSO gold, quarter schedule over {CHURN_ITERS} "
+        f"iterations, recycle=True:")
+    _, surface["churn"], _ = run_churn(protocol, churn_mod, build,
+                                       QuantSpec, make_lasso)
+    log("health watchers on the gold main path:")
+    _, surface["health"], _ = run_health(protocol, build, QuantSpec,
+                                         make_lasso, plain_history)
+    log("families: " + json.dumps(families))
 
     log(f"script: {time.perf_counter() - t_start:.1f} s")
 
@@ -796,6 +1181,9 @@ def main():
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
             "shape": t["shape"]}
+        entry.update({f"{path}_launches": surface[path][body]
+                      for path in SURFACE_PATHS})
+        entry["collab_encrypt_launches"] = enc_launches[body]
         timed = [r for r in shapes if r["body"] == body]
         if len(timed) > 1:                     # each main-path shape
             entry["shapes"] = [
@@ -805,6 +1193,21 @@ def main():
                 | {"launches": shape_launches.get((body, r["B"], r["k"]),
                                                   0)}
                 for r in timed]
+        new = [r for r in new_shapes if r["body"] == body]
+        if new:                                # this slice's new shapes
+            entry.setdefault("shapes", []).extend(
+                {key: r[key] for key in ("B", "k", "exp_bits", "ms",
+                                         "event_ms", "plain_ms",
+                                         "plain_rows", "bound_ms",
+                                         "bound_by", "max_abs_err",
+                                         "instantiation", "registers",
+                                         "spill_stores")}
+                | {"launches": shape_launches.get((body, r["B"], r["k"]), 0),
+                   "vec_arm_launches": vshapes.get((body, r["B"], r["k"]),
+                                                   0),
+                   "collab_launches": cshapes.get((body, r["B"], r["k"]),
+                                                  0)}
+                for r in new)
         kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

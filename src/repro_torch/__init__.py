@@ -1,4 +1,4 @@
-"""repro_torch: the 3P-ADMM-PC2 private-LASSO pipeline on PyTorch and CUDA.
+"""repro_torch: the 3P-ADMM-PC2 privacy protocol on PyTorch and CUDA.
 
 A port of the JAX package ``repro`` for one NVIDIA H100.  The big-integer
 kernels (``kernels/csrc``) are CUDA C++ written for ``sm_90a``, built at

@@ -4,16 +4,33 @@ Port of ``repro.core.cipher_tensor``: a batch of ciphertexts stays
 resident on the device as a ``(B, L16(n^2))`` radix-2^16 int32 tensor
 between protocol phases, and Python ints only exist when something needs
 them (``to_ints`` is lazy and cached).  The int boundary is the phase
-boundary, not the op boundary.  (The Algorithm-3 edge helpers
-``modexp_mod_vec``/``reduce_mod_vec`` arrive with collaborative mode.)
+boundary, not the op boundary.
+
+Also here: the two batched helpers the *edge* side of Algorithm 3 needs.
+An edge holds only Remark-4 material (p^2, phi(p^2), g mod p^2 — never the
+key), so these work from a bare modulus rather than a ``BatchKey``:
+
+* :func:`modexp_mod_vec` — whole-batch fixed-base ModExp mod an arbitrary
+  modulus (the collaborative-encryption half, ``g'^{O(m) mod phi(p^2)}``,
+  and the master's unmask factors, with exponents up to the modulus'
+  width);
+* :func:`reduce_mod_vec` — ``x mod p^2`` over a ciphertext batch (the
+  decryption assist), straight off the limbs of a :class:`CipherTensor`.
+
+Both are bit-exact against the scalar ``pow``/``%`` loops they replace
+and run on the limb kernels of ``device``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
 
+from .. import resolve_device
 from . import bigint as bi
+from . import paillier_vec as pv
+from ..kernels import ops
 
 # host<->limb conversion telemetry: bumped by CipherTensor only, so tests
 # can assert the resident pipeline converts once per phase boundary
@@ -94,3 +111,69 @@ class CipherTensor:
         return (f"CipherTensor(B={len(self)}, "
                 f"L16={int(self.limbs.shape[-1])}, {state})")
 
+
+def concat(parts: Sequence[CipherTensor]) -> CipherTensor:
+    """Concatenate ciphertext batches along the batch axis (limb space)."""
+    if not parts:
+        raise ValueError("concat of zero CipherTensors")
+    ints = None
+    if all(p.ints_materialized for p in parts):
+        ints = [c for p in parts for c in p._ints]
+    return CipherTensor(parts[0].bk,
+                        torch.cat([p.limbs for p in parts], dim=0),
+                        ints=ints)
+
+
+# ---------------------------------------------------------------------------
+# Bare-modulus batched helpers (Algorithm 3 edge side)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=64)
+def _pack(modulus: int) -> ops.ModulusPack:
+    return ops.pack_modulus(modulus)
+
+
+def modexp_mod_vec(base: int, exps: Sequence[int], modulus: int,
+                   device=None) -> list[int]:
+    """``[pow(base, e, modulus) for e in exps]`` as one batched launch on
+    ``device`` (default the card).
+
+    ``exps`` must be nonnegative (callers reduce mod the group order
+    first, like the scalar loops this replaces).  The shared base is
+    broadcast; exponent limbs size to the batch maximum.
+    """
+    exps = [int(e) for e in exps]
+    if not exps:
+        return []
+    if any(e < 0 for e in exps):
+        raise ValueError("modexp_mod_vec needs nonnegative exponents")
+    dev = resolve_device(device)
+    pack = _pack(int(modulus))
+    le = max(1, max(bi.n_limbs_for(e) for e in exps))
+    base_row = torch.as_tensor(
+        bi.from_int(int(base) % pack.m_int, pack.L16), device=dev)
+    bases = base_row.expand(len(exps), pack.L16)
+    out = ops.modexp(bases, torch.as_tensor(bi.from_ints(exps, le),
+                                            device=dev), pack)
+    return bi.to_ints(out)
+
+
+def reduce_mod_vec(cs, modulus: int, device=None) -> list[int]:
+    """``[int(c) % modulus for c in cs]`` without per-element host division.
+
+    A :class:`CipherTensor` is reduced straight off its resident limbs on
+    their device (no materialization); any int sequence is bulk-packed
+    onto ``device`` (default the card) first.
+    """
+    if isinstance(cs, CipherTensor):
+        limbs = cs.limbs
+    else:
+        cs = [int(c) for c in cs]
+        if not cs:
+            return []
+        width = max(1, max(bi.n_limbs_for(c) for c in cs))
+        limbs = torch.as_tensor(bi.from_ints(cs, width),
+                                device=resolve_device(device))
+    if int(limbs.shape[0]) == 0:
+        return []
+    return bi.to_ints(pv._reduce_into(limbs, _pack(int(modulus))))

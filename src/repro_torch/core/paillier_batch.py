@@ -206,9 +206,21 @@ def enc_ct(bk: BatchKey, ms, rng: random.Random) -> CipherTensor:
     return _enc_ct_impl(bk, ms, rs)
 
 
+def enc_vec(bk: BatchKey, ms, rng: random.Random) -> list[int]:
+    """Int-out form of :func:`enc_ct` (same rng stream, same ciphertexts)."""
+    return enc_ct(bk, ms, rng).to_ints()
+
+
 def add_ct(bk: BatchKey, c1: CipherTensor, c2: CipherTensor) -> CipherTensor:
     """⊕ on resident batches: one batched Barrett mulmod launch mod n^2."""
     return CipherTensor(bk, ops.mulmod(c1.limbs, c2.limbs, bk.vk.pack_n2))
+
+
+def rn_pool_limbs(bk: BatchKey, rs: Sequence[int]) -> torch.Tensor:
+    """Blinding pool r -> r^n mod n^2 as (B, L16(n^2)) limbs on
+    ``bk.device`` (the ``vec`` arm's encryption blindings, one
+    fixed-exponent launch over both CRT halves)."""
+    return modexp_crt_limbs(bk, rs, bk.key.n, fixed=True)
 
 
 def dec_vec(bk: BatchKey, cs) -> list[int]:

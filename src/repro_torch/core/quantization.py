@@ -48,16 +48,27 @@ def _f64(u) -> torch.Tensor:
     return torch.as_tensor(np.asarray(u, dtype=np.float64))
 
 
+def _to_int64(q: torch.Tensor) -> np.ndarray:
+    """float64 -> int64 as the reference's ``astype(jnp.int64)`` converts
+    (XLA): a value beyond the int64 range saturates and NaN gives 0.
+    (A bare ``Tensor.to(torch.int64)`` gives -2^63 for all three; Gamma_1
+    at Delta = 1e15, the paper's quantizer, reaches 1e28.)"""
+    hi, lo, nan = q >= 2.0 ** 63, q < -2.0 ** 63, torch.isnan(q)
+    out = torch.where(hi | lo | nan, 0.0, q).to(torch.int64)
+    out = torch.where(hi, torch.iinfo(torch.int64).max, out)
+    return torch.where(lo, torch.iinfo(torch.int64).min, out).numpy()
+
+
 def gamma2(u, spec: QuantSpec) -> np.ndarray:
     """Gamma_2: reals -> {0..Delta} (eq. 14b-d), int64."""
-    q = torch.round(spec.delta * (_f64(u) - spec.zmin) / spec.span)
-    return q.to(torch.int64).numpy()
+    return _to_int64(torch.round(spec.delta * (_f64(u) - spec.zmin)
+                                 / spec.span))
 
 
 def gamma1(u, spec: QuantSpec) -> np.ndarray:
     """Gamma_1: reals -> {0..Delta^2/s} (eq. 14a), int64."""
-    q = torch.round(spec.delta ** 2 * (_f64(u) - spec.zmin) / spec.span ** 2)
-    return q.to(torch.int64).numpy()
+    return _to_int64(torch.round(spec.delta ** 2 * (_f64(u) - spec.zmin)
+                                 / spec.span ** 2))
 
 
 def dequantize_theorem1(R, B_row_sums, w_sum, n_dim: int,

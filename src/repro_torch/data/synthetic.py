@@ -1,6 +1,13 @@
-"""Synthetic LASSO instances (the paper's §V-A/B), copied from
-``repro.data.synthetic`` so the same seed gives the same numpy data:
-Gaussian compressed matrix with controllable sparsity."""
+"""Synthetic data generators, copied from ``repro.data.synthetic`` so the
+same seed gives the same numpy data.
+
+* LASSO instances (the paper's §V-A/B): Gaussian compressed matrix,
+  controllable sparsity.
+* Power-network reconstruction (§V-C): sparse admittance graph, voltage
+  observations, per-bus LASSO instances.
+
+(``token_batch``, the LM stack's token streams, arrives with that slice.)
+"""
 from __future__ import annotations
 
 import dataclasses
@@ -27,3 +34,45 @@ def make_lasso(M: int, N: int, sparsity: float = 0.1, noise: float = 0.01,
     x[idx] = rng.normal(0.0, 1.0, k)
     y = A @ x + noise * rng.normal(0.0, 1.0, M)
     return LassoInstance(A=A, y=y, x_true=x)
+
+
+# ---------------------------------------------------------------------------
+# Power network (§V-C)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PowerNetwork:
+    adjacency: np.ndarray      # (N, N) binary (the ground truth to recover)
+    admittance: np.ndarray     # (N, N) weighted symmetric
+    voltages: np.ndarray       # (T, N) observations
+    currents: np.ndarray       # (T, N) I = V @ Y (Kirchhoff)
+
+
+def make_power_network(n_bus: int, avg_degree: float = 3.0, T: int = 200,
+                       noise: float = 1e-3, seed: int = 0) -> PowerNetwork:
+    rng = np.random.default_rng(seed)
+    p = avg_degree / max(n_bus - 1, 1)
+    upper = rng.random((n_bus, n_bus)) < p
+    upper = np.triu(upper, 1)
+    adj = (upper | upper.T).astype(np.float64)
+    w = rng.uniform(0.5, 2.0, (n_bus, n_bus))
+    Y = adj * (w + w.T) / 2.0
+    np.fill_diagonal(Y, 0.0)
+    d = Y.sum(1)
+    L = np.diag(d) - Y                    # weighted Laplacian
+    V = rng.normal(0.0, 1.0, (T, n_bus))
+    I = V @ L.T + noise * rng.normal(0.0, 1.0, (T, n_bus))
+    return PowerNetwork(adjacency=adj, admittance=Y, voltages=V, currents=I)
+
+
+def bus_lasso(net: PowerNetwork, bus: int) -> LassoInstance:
+    """Per-bus reconstruction instance: S_i = Phi_i d_i (eq. 50).
+
+    Phi_i[t, j] = V_i(t) - V_j(t); d_i[j] = Y_ij (column j != i)."""
+    V = net.voltages
+    phi = V[:, bus][:, None] - V                      # (T, N)
+    phi[:, bus] = V[:, bus]                           # self column: diagonal
+    d_true = net.admittance[bus].copy()
+    d_true[bus] = net.admittance[bus].sum()           # Laplacian diagonal
+    S = net.currents[:, bus]
+    return LassoInstance(A=phi, y=S, x_true=d_true)

@@ -1,9 +1,12 @@
 """The schema-versioned ``RunReport`` and the profiling event log.
 
-Port of the RunReport core of ``repro.obs.metrics``: the protocol driver
-builds ``ProtocolResult.stats`` through :func:`build_run_report`, and
-:func:`report_core` is the driver-independent view the conformance tests
-compare between the two packages.
+Port of ``repro.obs.metrics`` without ``Histogram``/``Registry`` (their
+only user is the runtime, which arrives with a later slice of the port):
+the protocol driver builds ``ProtocolResult.stats`` through
+:func:`build_run_report`; :func:`report_core`,
+:func:`reports_equal_modulo_timing`, :func:`diff_reports` and
+:func:`validate_report_core` are the conformance surface, and
+:func:`summary` the latency-distribution helper.
 """
 from __future__ import annotations
 
@@ -19,6 +22,18 @@ CORE_SECTIONS = ("schema_version", "workload", "cipher", "key_bits",
 
 #: the ``churn`` section's fixed key set (all ints)
 CHURN_KEYS = ("leaves", "rejoins", "fails", "deaths", "recycled")
+
+
+def summary(values) -> dict:
+    """``{n, min, max, mean, p50, p95, p99}`` for a sample list."""
+    vals = np.asarray(list(values), dtype=np.float64)
+    if vals.size == 0:
+        return {"n": 0}
+    p50, p95, p99 = np.percentile(vals, (50, 95, 99))
+    return {"n": int(vals.size), "min": float(vals.min()),
+            "max": float(vals.max()), "mean": float(vals.mean()),
+            "p50": float(p50), "p95": float(p95), "p99": float(p99)}
+
 
 _profile_events: list[dict] = []
 _profile_dropped = 0
@@ -96,3 +111,60 @@ def build_run_report(*, driver: str, ops: dict, traffic: dict,
 def report_core(report: dict) -> dict:
     """The driver-independent sections of a RunReport (conformance view)."""
     return {k: report[k] for k in CORE_SECTIONS if k in report}
+
+
+def reports_equal_modulo_timing(a: dict, b: dict) -> bool:
+    """True when two RunReports agree on every core section — the
+    sync-mode conformance predicate (timing/telemetry sections ignored)."""
+    return report_core(a) == report_core(b)
+
+
+def diff_reports(a: dict, b: dict, label_a: str = "A",
+                 label_b: str = "B") -> list[str]:
+    """Human-readable core-section differences between two reports."""
+    lines = []
+    for key in CORE_SECTIONS:
+        va, vb = a.get(key), b.get(key)
+        if va == vb:
+            continue
+        if key == "mse_trajectory" and va and vb:
+            lines.append(f"mse_trajectory: final {label_a}={va[-1]:.3e} "
+                         f"{label_b}={vb[-1]:.3e} (len {len(va)}/{len(vb)})")
+        elif isinstance(va, dict) and isinstance(vb, dict):
+            for sub in sorted(set(va) | set(vb)):
+                if va.get(sub) != vb.get(sub):
+                    lines.append(f"{key}.{sub}: {label_a}={va.get(sub)} "
+                                 f"{label_b}={vb.get(sub)}")
+        else:
+            lines.append(f"{key}: {label_a}={va} {label_b}={vb}")
+    return lines
+
+
+def validate_report_core(report: dict, where: str = "report") -> list[str]:
+    """Schema errors (empty list = valid) for a RunReport / its core."""
+    errors = []
+    if not isinstance(report, dict):
+        return [f"{where}: not a dict"]
+    if report.get("schema_version") != REPORT_SCHEMA_VERSION:
+        errors.append(f"{where}: schema_version "
+                      f"{report.get('schema_version')!r} != "
+                      f"{REPORT_SCHEMA_VERSION}")
+    for key, typ in (("ops", dict), ("traffic_bytes", dict),
+                     ("mse_trajectory", list), ("workload", str),
+                     ("cipher", str)):
+        if not isinstance(report.get(key), typ):
+            errors.append(f"{where}: missing/ill-typed {key!r}")
+    if isinstance(report.get("ops"), dict):
+        for ph, ops in report["ops"].items():
+            if not isinstance(ops, dict) or not all(
+                    isinstance(v, int) for v in ops.values()):
+                errors.append(f"{where}: ops[{ph!r}] not a str->int dict")
+    # "churn" joined the core sections after schema v1 artifacts were
+    # committed: validated when present, not required
+    if "churn" in report:
+        ch = report["churn"]
+        if not isinstance(ch, dict) or not all(
+                k in ch and isinstance(ch[k], int) for k in CHURN_KEYS):
+            errors.append(f"{where}: churn section must carry int "
+                          f"{'/'.join(CHURN_KEYS)}")
+    return errors

@@ -1,12 +1,18 @@
 """repro_torch.workloads — registry of ADMM problem families.
 
-Port of ``repro.workloads``.  This slice registers the paper's own family,
-``lasso``; the other families (ridge, elastic_net, logistic, power_grid,
-consensus, streaming) and secure aggregation arrive with a later slice.
+Port of ``repro.workloads``: every family of the reference, registered
+under the same name (``names()`` equals the reference's), so
+``ProtocolConfig.workload`` resolves the same way in both packages.
+
+>>> from repro_torch import workloads
+>>> sorted(workloads.names())
+['consensus_lasso', 'consensus_logistic', 'elastic_net', 'lasso', \
+'logistic', 'power_grid', 'ridge', 'streaming_lasso']
 """
 from __future__ import annotations
 
-from .base import Workload, WorkloadInstance, WorkloadState  # noqa: F401
+from .base import (Workload, WorkloadInstance, WorkloadState,  # noqa: F401
+                   SecureAggContext, simulate_float)
 
 REGISTRY: dict[str, type[Workload]] = {}
 
@@ -44,4 +50,5 @@ def names() -> list[str]:
 
 
 # importing the family modules self-registers them
-from . import lasso  # noqa: E402,F401
+from . import (lasso, ridge, elastic_net, logistic,  # noqa: E402,F401
+               power_grid, consensus, streaming)

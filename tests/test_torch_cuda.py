@@ -18,8 +18,10 @@ operands 0, m - 1, m and 2^{16 L16} - 1, a broadcast b row, a column
 slice and every instantiated group size at every width; the win4 bodies
 of modexp and modexp_fixed every group size at k = 64.  The two-half
 modexp_fixed launch (both CRT halves in one launch) is held against one
-plain call per half.  A small protocol run on the card is held against
-the same run on the CPU.  These tests need an NVIDIA card and skip
+plain call per half.  Small protocol runs on the card (the gold arm, the
+vec arm, the collaborative mode, a consensus family through secure
+aggregation and a churned run) are held against the same runs on the
+CPU.  These tests need an NVIDIA card and skip
 without one; on the card run
 ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
@@ -29,7 +31,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import workloads
 from repro_torch.core import bigint as bi
+from repro_torch.core import churn
 from repro_torch.core import protocol
 from repro_torch.core.quantization import QuantSpec
 from repro_torch.data.synthetic import make_lasso
@@ -148,6 +152,38 @@ def test_protocol_on_card_equals_cpu_run(dev):
     assert on_card.history.tobytes() == on_cpu.history.tobytes()
     assert report_core(on_card.stats) == report_core(on_cpu.stats)
     assert np.all(np.isfinite(on_card.history))
+
+
+SURFACE = {"vec": dict(cipher="vec"),
+           "collaborative": dict(cipher="gold", collaborative=True),
+           "consensus_lasso": dict(cipher="gold", workload="consensus_lasso",
+                                   lam=0.05),
+           "churn": dict(cipher="gold", iters=5, recycle=True,
+                         churn=churn.ChurnSchedule.quarter(4, 5))}
+
+
+@pytest.mark.parametrize("arm", SURFACE)
+def test_protocol_surface_on_card_equals_cpu_run(dev, arm):
+    """The vec arm, Algorithm 3, secure aggregation and churn on the
+    card give the CPU runs' history bytes and RunReport cores."""
+    kw = dict(K=4, lam=0.05, iters=2, seed=0, key_bits=128,
+              spec=QuantSpec(1e6, -8.0, 8.0))
+    kw.update(SURFACE[arm])
+    inst = make_lasso(24, 32, sparsity=0.1, noise=0.01, seed=1)
+    wl = None
+    if arm == "consensus_lasso":
+        wl = workloads.get_default(arm)
+        inst = wl.make_instance(24, 8, 4, seed=1)
+        kw["spec"] = wl.calibrate_spec(inst.A, inst.y, 4, kw["iters"])
+    cfg = protocol.ProtocolConfig(**kw)
+    build.reset_launches()
+    on_card = protocol.run_protocol(inst.A, inst.y, cfg, workload=wl)
+    for body in MAIN_PATH_BODIES:
+        assert build.LAUNCHES[body] > 0, build.LAUNCHES
+    on_cpu = protocol.run_protocol(inst.A, inst.y, cfg, workload=wl,
+                                   device="cpu")
+    assert on_card.history.tobytes() == on_cpu.history.tobytes()
+    assert report_core(on_card.stats) == report_core(on_cpu.stats)
 
 
 def _width_modulus(k: int, kind: str) -> int:
