@@ -61,14 +61,37 @@ package, and:
    192 wide, 2 iterations, the streaming family 3) against its plain
    arm; LASSO under ``ChurnSchedule.quarter(K, 5)`` with recycled
    updates against its plain arm; and a ``health=True`` run;
-10. prints the kernel table as one JSON line (each body's launches on the
-    main path, on the Barrett arm and on each path of step 9), then as
-    its last line ``{"ok": true, "device": {...}}``.
+10. runs the event-driven runtime (``repro_torch.runtime``) at the main
+    path's key and cut, each path with the launch counts set to 0 just
+    before it and read just after: ``run_on_runtime`` with the gold arm
+    on a star (history equal to the plain arm's, RunReport core equal to
+    step 4's synchronous run; the K edges' matvecs fused into one
+    ``modexp`` launch per CRT half per round at B = K Nk^2 = 110,592, and
+    one ``modexp_fixed`` launch per round for the encryptions and one for
+    the decryptions); the ``vec`` arm (one n^2 ``modexp`` launch per
+    round at B = 110,592, core equal to step 9's ``vec`` run); deadline
+    mode with a 10x slow edge behind a slow link, the coalescing queue
+    holding lone ops (``coalesce_hold_ticks="auto"``), against the plain
+    arm under the same schedule (links whose bandwidth makes ciphertext
+    size irrelevant): equal history, equal nonzero stale events, equal
+    virtual round times; ``cipher="auto"``: ``dispatch.calibrate`` on the
+    card into a fresh cache file under ``build/`` (timed, its table
+    printed), then a run that loads that cache without measuring, its
+    routes printed, its history equal to the plain arm's; and
+    ``python -m repro_torch.launch.edge_sim --backend auto`` as a
+    subprocess.  Every kernel shape these paths launch and no earlier
+    phase did is held against its plain version (on the host) on sample
+    rows of its first launch, and timed by CUDA events around each of its
+    launches, beside its bound;
+11. prints the kernel table as one JSON line (each body's launches on the
+    main path, on the Barrett arm and on each path of steps 9 and 10),
+    then as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
 result.  Exact integer work: the tolerance of every comparison is zero.
 """
 import contextlib
+import dataclasses
 import json
 import os
 import random
@@ -1086,6 +1109,372 @@ def run_health(protocol, build, QuantSpec, make_lasso, plain_history):
     return res, launches, shapes
 
 
+# ---------------------------------------------------------------------------
+# the event-driven runtime: launches fused across edges, deadline mode,
+# cipher="auto" dispatch and the edge_sim CLI
+# ---------------------------------------------------------------------------
+
+#: the event-driven runtime's paths, in the order they run
+RUNTIME_PATHS = ("rt_gold", "rt_vec", "rt_deadline", "rt_auto")
+#: the K edges' matvec rows in one fused launch
+FUSED_B = K * NK * NK
+#: deadline mode: edge 1 answers 10x slower than the others and sits
+#: behind a slower link; the master's cutoff falls between the two
+DEADLINE, BASE_S, SLOW_S, SLOW_EDGE, SLOW_LINK_S = 0.2, 0.05, 0.5, 1, 0.15
+TICK_S = 1e-3
+#: rows of each new launch shape held against the plain version: the
+#: first and last rows of its first launch (of each half of a pair)
+SAMPLE_ROWS = 4
+
+
+def _host_modulus(dm):
+    """A DeviceModulus's tensors on the host (for the plain versions)."""
+    return type(dm)(**{f.name: (getattr(dm, f.name).cpu()
+                                if isinstance(getattr(dm, f.name),
+                                              torch.Tensor)
+                                else getattr(dm, f.name))
+                       for f in dataclasses.fields(dm)})
+
+
+def _sample(B):
+    """The first and last SAMPLE_ROWS of B rows."""
+    n = min(SAMPLE_ROWS, B)
+    return sorted({*range(n), *range(B - n, B)})
+
+
+class ShapeRecorder:
+    """While installed, wraps the three kernel wrappers: every launch of a
+    (body, B, k) shape not in ``seen`` gets CUDA events around it, and the
+    first launch of each such shape keeps sample rows of its operands and
+    result on the host.  :meth:`check` then holds each sample against the
+    plain version of its body on the host and returns one row per shape
+    with its launches, median device ms and bound."""
+
+    def __init__(self, mx, lm, geometry, seen):
+        self.mx, self.lm, self.geometry = mx, lm, geometry
+        self.seen = set(seen)
+        self.events = defaultdict(list)
+        self.samples = {}
+        self._real = {}
+
+    def _timed(self, shape, fn):
+        if shape in self.seen:
+            return fn(), False
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        stop.record()
+        self.events[shape].append((start, stop))
+        return out, shape not in self.samples
+
+    def __enter__(self):
+        mx, lm, geometry = self.mx, self.lm, self.geometry
+        real_modexp, real_fixed, real_mulmod = (
+            mx.modexp_cuda, mx._launch_fixed, lm.mulmod_cuda)
+        self._real = {"modexp_cuda": real_modexp,
+                      "_launch_fixed": real_fixed,
+                      "mulmod_cuda": real_mulmod}
+
+        def modexp_cuda(base, exp, dm, method, reduce_impl, tpi=None):
+            body = geometry.body_name("modexp", reduce_impl, method)
+            shape = (body, int(base.shape[0]), dm.L32)
+            out, first = self._timed(shape, lambda: real_modexp(
+                base, exp, dm, method, reduce_impl, tpi))
+            if first:
+                idx = _sample(shape[1])
+                self.samples[shape] = dict(
+                    kind="modexp", base=base[idx].cpu(), exp=exp[idx].cpu(),
+                    out=out[idx].cpu(), dm=_host_modulus(dm),
+                    method=method, impl=reduce_impl,
+                    exp_bits=16 * int(exp.shape[1]), L16=dm.L16)
+            return out
+
+        def launch_fixed(base, B0, windows, dms, mont, tpi):
+            body = geometry.body_name("modexp_fixed",
+                                      "montgomery" if mont else "barrett")
+            shape = (body, int(base.shape[0]), dms[0].L32)
+            out, first = self._timed(shape, lambda: real_fixed(
+                base, B0, windows, dms, mont, tpi))
+            if first:
+                halves = []
+                for lo, hi, w, dm in ((0, B0, windows[0], dms[0]),
+                                      (B0, shape[1], windows[-1], dms[-1])):
+                    if hi > lo:
+                        idx = [lo + i for i in _sample(hi - lo)]
+                        halves.append((base[idx].cpu(), out[idx].cpu(),
+                                       list(w), _host_modulus(dm)))
+                self.samples[shape] = dict(
+                    kind="modexp_fixed", halves=halves,
+                    impl="montgomery" if mont else "barrett",
+                    exp_bits=4 * max(len(w) for w in windows),
+                    L16=dms[0].L16)
+            return out
+
+        def mulmod_cuda(a, b, dm, tpi=None):
+            shape = ("mulmod", int(a.shape[0]), dm.L32)
+            out, first = self._timed(shape, lambda: real_mulmod(a, b, dm,
+                                                                tpi))
+            if first:
+                idx = _sample(shape[1])
+                self.samples[shape] = dict(
+                    kind="mulmod", a=a[idx].cpu(), b=b[idx].cpu(),
+                    out=out[idx].cpu(), dm=_host_modulus(dm),
+                    broadcast=b.shape[0] > 1 and b.stride(0) == 0,
+                    L16=dm.L16)
+            return out
+
+        mx.modexp_cuda, mx._launch_fixed, lm.mulmod_cuda = (
+            modexp_cuda, launch_fixed, mulmod_cuda)
+        return self
+
+    def __exit__(self, *exc):
+        for attr, fn in self._real.items():
+            setattr(self.lm if attr == "mulmod_cuda" else self.mx, attr, fn)
+        return False
+
+    def _fixed_plain(self):
+        """The plain ``modexp_fixed`` of every sampled half, one call per
+        (reduction, exponent, modulus): the 2,048-bit ladders cost seconds
+        a call on the host whatever the rows, and launches of two shapes
+        (the share phase's and a round's encryptions) share exponent and
+        moduli.  Returns {(shape, half): rows} and the seconds per call."""
+        groups = defaultdict(list)
+        for shape, s in self.samples.items():
+            if s["kind"] != "modexp_fixed":
+                continue
+            for h, (base, _, w, dm) in enumerate(s["halves"]):
+                key = (s["impl"], tuple(w), dm.m16.numpy().tobytes())
+                groups[key].append((shape, h, base, dm))
+        want, secs = {}, []
+        for (impl, w, _), items in groups.items():
+            t0 = time.perf_counter()
+            out = self.mx.modexp_fixed_plain(
+                torch.cat([base for _, _, base, _ in items]), list(w),
+                items[0][3], impl)
+            secs.append(time.perf_counter() - t0)
+            i = 0
+            for shape, h, base, _ in items:
+                want[(shape, h)] = out[i:i + base.shape[0]]
+                i += base.shape[0]
+        return want, secs
+
+    def check(self):
+        torch.cuda.synchronize()
+        mx, lm = self.mx, self.lm
+        fixed_want, fixed_secs = self._fixed_plain()
+        log(f"  plain modexp_fixed on the host for the sampled rows: "
+            f"{len(fixed_secs)} calls, "
+            + ", ".join(f"{t:.1f}" for t in fixed_secs) + " s")
+        rows = []
+        for shape in sorted(self.samples):
+            body, B, k = shape
+            s = self.samples[shape]
+            t0 = time.perf_counter()
+            if s["kind"] == "modexp":
+                got = [s["out"]]
+                want = [mx.modexp_plain(s["base"], s["exp"], s["dm"],
+                                        s["method"], s["impl"])]
+                work = word_products("modexp", k, exp_bits=s["exp_bits"],
+                                     mont=s["impl"] == "montgomery",
+                                     win4=s["method"] == "win4")
+                moved = B * (2 * s["L16"] + s["exp_bits"] // 16) * 4
+            elif s["kind"] == "modexp_fixed":
+                got = [out for _, out, _, _ in s["halves"]]
+                want = [fixed_want[(shape, h)] for h in range(len(got))]
+                work = word_products("modexp_fixed", k,
+                                     exp_bits=s["exp_bits"],
+                                     mont=s["impl"] == "montgomery")
+                moved = B * 2 * s["L16"] * 4
+            else:
+                got = [s["out"]]
+                want = [lm.mulmod_plain(s["a"], s["b"], s["dm"])]
+                work = word_products("mulmod", k)
+                moved = B * (2 + (0 if s["broadcast"] else 1)) \
+                    * s["L16"] * 4
+            plain_ms = None if s["kind"] == "modexp_fixed" \
+                else 1e3 * (time.perf_counter() - t0)
+            err = max(int((g.long() - w.long()).abs().max()) if g.numel()
+                      else 0 for g, w in zip(got, want))
+            assert err == 0, f"{shape}: kernel differs from its plain " \
+                f"version on sample rows (max abs limb error {err})"
+            ms = [a.elapsed_time(b) for a, b in self.events[shape]]
+            bnd, by = bound_ms(work, B, moved)
+            rows.append(dict(body=body, B=B, k=k,
+                             launches=len(self.events[shape]),
+                             ms=float(np.median(ms)), ms_max=max(ms),
+                             bound_ms=bnd, bound_by=by,
+                             sample_rows=sum(int(g.shape[0]) for g in got),
+                             max_abs_err=err,
+                             plain_host_ms_on_sample=plain_ms))
+        return rows
+
+
+def drive_runtime(build, run):
+    """One runtime run with the launch counts set to 0 just before it and
+    read just after; returns the result, wall seconds and the launches by
+    body and by shape."""
+    build.reset_launches()
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return res, wall, dict(build.LAUNCHES), dict(build.SHAPE_LAUNCHES)
+
+
+def report_runtime(path, res, wall, launches, shapes):
+    secs, rt = res.stats["seconds"], res.stats["runtime"]
+    done = rt["iter_times"]
+    virt = [b - a for a, b in zip(done, done[1:])]
+    log(f"  {path}: wall {wall:.2f} s; init {secs['init']:.3f} s, share "
+        f"{secs['share']:.3f} s, rounds (wall) "
+        + ", ".join(f"{t:.4f}" for t in secs["rounds"]) + " s; rounds "
+        "(virtual, completion times) "
+        + ", ".join(f"{t:.4f}" for t in done) + " s, between rounds "
+        + ", ".join(f"{t:.4f}" for t in virt) + " s")
+    log(f"  {path}: coalesce launches {rt['launches']}, coalesced ops "
+        f"{rt['coalesced_ops']}, held flushes {rt['held_flushes']}, ops "
+        f"per launch {json.dumps(rt['coalesce']['ops_per_launch'])}; "
+        f"launch wall ms (device synchronized) "
+        + json.dumps({op: {k: round(v.get('p50', 0.0), 3)
+                           for k, v in d.items()}
+                      for op, d in rt["coalesce"]["launch_wall_ms"].items()}))
+    log(f"  {path} launches {launches}; by shape " + json.dumps(
+        [{"body": body, "B": B, "k": k, "launches": n}
+         for (body, B, k), n in sorted(shapes.items())]))
+
+
+def run_runtime_sync(runner, protocol, QuantSpec, make_lasso, report_core,
+                     build, cipher, plain_history, sync_core):
+    """``run_on_runtime`` on a star at the main path's cut: history equal
+    to the plain arm's, RunReport core equal to the synchronous run of
+    the same arm; the K edges' matvecs fused into one launch per CRT half
+    (gold) or one n^2 launch (vec) per round, one ``modexp_fixed`` launch
+    for the round's encryptions and one for its decryptions."""
+    inst = make_lasso(M, N, sparsity=0.1, noise=0.01, seed=SEED)
+    cfg = lasso_config(protocol, QuantSpec, cipher, ITERS)
+    res, wall, launches, shapes = drive_runtime(
+        build, lambda: runner.run_on_runtime(inst.A, inst.y, cfg,
+                                             device=DEVICE))
+    path = f"runtime {cipher} arm"
+    assert res.history.tobytes() == plain_history.tobytes(), \
+        f"{path}: history differs from the plain arm"
+    assert report_core(res.stats) == sync_core, \
+        f"{path}: RunReport core differs from the synchronous run's"
+    check_launches(path, launches, MAIN_PATH_BODIES)
+    body = "modexp[montgomery,win4]"
+    k = (KEY_BITS if cipher == "gold" else 2 * KEY_BITS) // 32
+    per_round = 2 if cipher == "gold" else 1
+    fused = shapes.get((body, FUSED_B, k), 0)
+    assert fused == per_round * ITERS, \
+        f"{path}: {fused} fused modexp launches at B={FUSED_B}, k={k}; " \
+        f"expected {per_round} per round"
+    assert launches[body] == fused, \
+        f"{path}: modexp launched outside the fused matvec: {launches}"
+    assert launches["modexp_fixed[montgomery]"] == 1 + 2 * ITERS, \
+        f"{path}: modexp_fixed launches {launches}; expected one for the " \
+        f"share phase and two per round"
+    report_runtime(path, res, wall, launches, shapes)
+    return res, launches, shapes
+
+
+def run_runtime_deadline(runner, protocol, QuantSpec, make_lasso, LinkModel,
+                         build):
+    """Deadline mode, gold arm: edge SLOW_EDGE answers 10x slower behind a
+    slower link, the coalescing queue holds lone ops
+    (``coalesce_hold_ticks="auto"``), so ops of different rounds share
+    launches.  Held against the plain arm under the same schedule (links
+    of infinite bandwidth: ciphertext size cannot move an event): equal
+    history, equal nonzero stale events, equal virtual round times."""
+    inst = make_lasso(M, N, sparsity=0.1, noise=0.01, seed=SEED)
+    inf = float("inf")
+    kw = dict(link=LinkModel(bytes_per_s=inf),
+              per_link={("master", f"edge{SLOW_EDGE}"): LinkModel(
+                  bytes_per_s=inf, latency_s=SLOW_LINK_S)},
+              coalesce_hold_ticks="auto", tick_s=TICK_S, device=DEVICE)
+    cfg = replace(lasso_config(protocol, QuantSpec, "gold", ITERS),
+                  deadline=DEADLINE,
+                  latency_fn=lambda k, t: SLOW_S if k == SLOW_EDGE
+                  else BASE_S)
+    plain = runner.run_on_runtime(inst.A, inst.y,
+                                  replace(cfg, cipher="plain"), **kw)
+    res, wall, launches, shapes = drive_runtime(
+        build, lambda: runner.run_on_runtime(inst.A, inst.y, cfg, **kw))
+    assert res.stale_events == plain.stale_events > 0, \
+        (res.stale_events, plain.stale_events)
+    assert res.history.tobytes() == plain.history.tobytes(), \
+        "deadline run: history differs from its plain twin"
+    assert res.stats["runtime"]["iter_times"] == \
+        plain.stats["runtime"]["iter_times"]
+    check_launches("runtime deadline path", launches, MAIN_PATH_BODIES)
+    rt = res.stats["runtime"]
+    assert rt["held_flushes"] > 0, rt["held_flushes"]
+    report_runtime("runtime deadline (gold)", res, wall, launches, shapes)
+    log(f"  deadline: {res.stale_events} stale blocks (plain twin "
+        f"{plain.stale_events}), hold {rt['coalesce_hold_ticks']} ticks; "
+        f"history equals the plain twin bit for bit")
+    return res, launches, shapes
+
+
+def run_runtime_auto(runner, dispatch, protocol, QuantSpec, make_lasso,
+                     build, plain_history, calib):
+    """``cipher="auto"``: calibrate on the card into a fresh cache file,
+    then run with that cache (loaded, nothing measured); history equal
+    to the plain arm's."""
+    if os.path.exists(calib):
+        os.remove(calib)
+    t0 = time.perf_counter()
+    table = dispatch.calibrate(key_bits=(KEY_BITS,), batch_sizes=(NK,),
+                               backends=("gold", "gold_batch", "vec"),
+                               path=calib, device=DEVICE)
+    calib_s = time.perf_counter() - t0
+    log(f"  calibrate: {calib_s:.1f} s on {dispatch.device_kind(DEVICE)}; "
+        f"seconds per element " + json.dumps(table["entries"]))
+    inst = make_lasso(M, N, sparsity=0.1, noise=0.01, seed=SEED)
+    cfg = lasso_config(protocol, QuantSpec, "auto", ITERS)
+    res, wall, launches, shapes = drive_runtime(
+        build, lambda: runner.run_on_runtime(inst.A, inst.y, cfg,
+                                             calib_path=calib,
+                                             device=DEVICE))
+    assert res.history.tobytes() == plain_history.tobytes(), \
+        "auto run: history differs from the plain arm"
+    # the run's own calibrate call is the last one its report drained
+    loads = [e for e in res.stats["runtime"]["profile"]
+             if e["kind"] == "calibrate"]
+    assert loads and loads[-1]["measured"] == 0 \
+        and loads[-1]["cached"] == 3, loads
+    check_launches("runtime auto path", launches, MAIN_PATH_BODIES)
+    routes = res.stats["runtime"]["dispatch"]
+    report_runtime("runtime auto", res, wall, launches, shapes)
+    log(f"  auto: routes {json.dumps(routes)}; the run loaded the cache "
+        f"({json.dumps(loads[-1])}); history equals the plain arm")
+    return res, launches, shapes, calib_s, routes
+
+
+def run_edge_sim(calib):
+    """``python -m repro_torch.launch.edge_sim --backend auto`` as a
+    subprocess at the main path's key and block width, loading the
+    calibration cache ``calib``; returns its wall seconds."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               REPRO_CALIB_CACHE=calib)
+    cmd = [sys.executable, "-m", "repro_torch.launch.edge_sim", "--backend",
+           "auto", "--edges", str(K), "--block", str(NK), "--key-bits",
+           str(KEY_BITS), "--iters", str(ITERS)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          env=env, cwd=REPO)
+    secs = time.perf_counter() - t0
+    assert proc.returncode == 0, \
+        f"edge_sim exited {proc.returncode}:\n{proc.stderr[-4000:]}"
+    summary = json.loads(proc.stdout)
+    assert summary["backend"] == "auto" and summary["iters"] == ITERS
+    assert summary["device"] == f"torch-cuda-" + \
+        torch.cuda.get_device_name(0).replace("/", "-")
+    log(f"  edge_sim: exit 0 in {secs:.1f} s; summary "
+        + json.dumps(summary, separators=(",", ":")))
+    return secs
+
+
 def main():
     require_card()
     sys.path.insert(0, os.path.join(REPO, "src"))
@@ -1101,7 +1490,12 @@ def main():
     from repro_torch.kernels import limb_mulmod as lm
     from repro_torch.kernels import modexp as mx
     from repro_torch.kernels import montgomery as mg
+    from repro_torch.obs.metrics import report_core
+    from repro_torch.runtime import LinkModel, dispatch, runner
     dev = torch.device("cuda")
+    # the run-history ledger and the calibration cache stay in the checkout
+    os.environ["REPRO_LEDGER"] = os.path.join(REPO, "build", "ledger.jsonl")
+    calib = os.path.join(REPO, "build", "dispatch_calib.json")
     t_start = time.perf_counter()
 
     ptxas = build_kernels(build)
@@ -1148,7 +1542,7 @@ def main():
     new_shapes = time_new_shapes(key, packs, bi, geometry, mx, ptxas, dev)
     surface = {}
     log("vec arm of the main path:")
-    _, surface["vec_arm"], vshapes = run_vec_arm(
+    vec_res, surface["vec_arm"], vshapes = run_vec_arm(
         protocol, gold, bi, build, QuantSpec, make_lasso, plain_history,
         gold_box)
     log("Algorithm 3 (collaborative=True) on the main path's instance:")
@@ -1156,16 +1550,51 @@ def main():
         protocol, gold, pb, build, QuantSpec, make_lasso, plain_history,
         shape_launches)
     log(f"the other families, gold arm, {KEY_BITS}-bit keys, Nk={NK}:")
-    families, surface["families"], _ = run_families(protocol, build,
-                                                    workloads)
+    families, surface["families"], fshapes = run_families(protocol, build,
+                                                          workloads)
     log(f"churn: LASSO gold, quarter schedule over {CHURN_ITERS} "
         f"iterations, recycle=True:")
-    _, surface["churn"], _ = run_churn(protocol, churn_mod, build,
-                                       QuantSpec, make_lasso)
+    _, surface["churn"], hshapes = run_churn(protocol, churn_mod, build,
+                                             QuantSpec, make_lasso)
     log("health watchers on the gold main path:")
-    _, surface["health"], _ = run_health(protocol, build, QuantSpec,
-                                         make_lasso, plain_history)
+    _, surface["health"], lshapes = run_health(protocol, build, QuantSpec,
+                                               make_lasso, plain_history)
     log("families: " + json.dumps(families))
+
+    # the event-driven runtime, after every earlier phase; each kernel
+    # shape that none of them launched is sampled and timed
+    seen = set(shape_launches) | set(bshape_launches) | set(vshapes) \
+        | set(cshapes) | set(fshapes) | set(hshapes) | set(lshapes)
+    runtime = {}
+    with ShapeRecorder(mx, lm, geometry, seen) as recorder:
+        log(f"runtime, sync mode, gold arm, star, K={K}:")
+        _, runtime["rt_gold"], rgshapes = run_runtime_sync(
+            runner, protocol, QuantSpec, make_lasso, report_core, build,
+            "gold", plain_history, report_core(res.stats))
+        log(f"runtime, sync mode, vec arm, star, K={K}:")
+        _, runtime["rt_vec"], rvshapes = run_runtime_sync(
+            runner, protocol, QuantSpec, make_lasso, report_core, build,
+            "vec", plain_history, report_core(vec_res.stats))
+        log(f"runtime, deadline mode ({DEADLINE} s), gold arm, edge "
+            f"{SLOW_EDGE} 10x slow behind a {SLOW_LINK_S} s link, "
+            f"coalesce_hold_ticks='auto':")
+        _, runtime["rt_deadline"], rdshapes = run_runtime_deadline(
+            runner, protocol, QuantSpec, make_lasso, LinkModel, build)
+        log(f"runtime, cipher='auto', calibrated on the card "
+            f"(key_bits={KEY_BITS}, batch {NK}):")
+        (_, runtime["rt_auto"], rashapes, calib_s,
+         routes) = run_runtime_auto(runner, dispatch, protocol, QuantSpec,
+                                    make_lasso, build, plain_history, calib)
+    runtime_shapes = recorder.check()
+    log("new launch shapes of the runtime paths, each equal to its plain "
+        "version on sample rows: " + json.dumps(runtime_shapes))
+    log("python -m repro_torch.launch.edge_sim --backend auto:")
+    edge_sim_s = run_edge_sim(calib)
+    rt_shape_launches = {"rt_gold": rgshapes, "rt_vec": rvshapes,
+                         "rt_deadline": rdshapes, "rt_auto": rashapes}
+    log("runtime: " + json.dumps({
+        "calibrate_s": calib_s, "auto_routes": routes,
+        "edge_sim_s": edge_sim_s, "launches": runtime}))
 
     log(f"script: {time.perf_counter() - t_start:.1f} s")
 
@@ -1184,6 +1613,8 @@ def main():
         entry.update({f"{path}_launches": surface[path][body]
                       for path in SURFACE_PATHS})
         entry["collab_encrypt_launches"] = enc_launches[body]
+        entry.update({f"{path}_launches": runtime[path][body]
+                      for path in RUNTIME_PATHS})
         timed = [r for r in shapes if r["body"] == body]
         if len(timed) > 1:                     # each main-path shape
             entry["shapes"] = [
@@ -1208,6 +1639,12 @@ def main():
                    "collab_launches": cshapes.get((body, r["B"], r["k"]),
                                                   0)}
                 for r in new)
+        rt_new = [r for r in runtime_shapes if r["body"] == body]
+        if rt_new:                             # the runtime's new shapes
+            entry.setdefault("shapes", []).extend(
+                dict(r, **{f"{path}_launches": rt_shape_launches[path].get(
+                    (body, r["B"], r["k"]), 0) for path in RUNTIME_PATHS})
+                for r in rt_new)
         kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -262,3 +262,31 @@ def mulmod(a: torch.Tensor, b: torch.Tensor, m: torch.Tensor,
            mu: torch.Tensor) -> torch.Tensor:
     """(a * b) mod m, all operands of L limbs."""
     return _barrett(_mul(a, b), m, mu).to(torch.int32)
+
+
+def modexp(base: torch.Tensor, exp: torch.Tensor, m: torch.Tensor,
+           mu: torch.Tensor) -> torch.Tensor:
+    """base^exp mod m by the constant-time binary square-and-multiply
+    ladder (the reference's plain ``bigint.modexp``, not a kernel).
+
+    ``base``: (..., L) limbs; ``exp``: (..., Le) limbs (per-element
+    exponents); ``m``/``mu``: 1-D modulus limbs (broadcast) or batched.
+    Returns (..., L) int32 limbs.
+    """
+    n_bits = exp.shape[-1] * LIMB_BITS
+    exp64 = _i64(exp)
+    res = torch.zeros_like(base, dtype=torch.int32)
+    res[..., 0] = 1
+    # reduce base mod m first (callers may pass unreduced bases)
+    b = barrett_reduce(base, m, mu)
+    for j in range(n_bits):
+        bit = (exp64[..., j // LIMB_BITS] >> (j % LIMB_BITS)) & 1
+        res = torch.where((bit == 1)[..., None], mulmod(res, b, m, mu), res)
+        b = mulmod(b, b, m, mu)
+    return res
+
+
+def mod_small(a: torch.Tensor, m: torch.Tensor,
+              mu: torch.Tensor) -> torch.Tensor:
+    """a mod m for a of up to 2L limbs (general entry point)."""
+    return barrett_reduce(a, m, mu)

@@ -28,10 +28,11 @@ plaintexts, the ⊗-matvec at n^2 width).  The big-integer work runs on
 ``device`` (default the card); plaintext float64 math stays on the host,
 as in the reference.
 
-Not ported yet, raising ``NotImplementedError``: the event-driven
-runtime's ``deadline`` mode and ``cipher="auto"`` dispatch.  The
-reference's run-history ledger (``obs/ledger.record_run``, a no-op unless
-``REPRO_LEDGER`` is set) arrives with the observability slice.
+``deadline`` mode and ``cipher="auto"`` (per-op adaptive dispatch) run
+on the event-driven runtime: :func:`run_protocol` hands them to
+``repro_torch.runtime.runner.run_on_runtime``, as the reference does.
+Every completed run appends one record to the run-history ledger
+(``obs/ledger.record_run``; ``REPRO_LEDGER=off`` disables it).
 """
 from __future__ import annotations
 
@@ -47,6 +48,7 @@ import torch
 from .. import resolve_device
 from .. import workloads as workloads_mod
 from ..obs import health as health_mod
+from ..obs import ledger as ledger_mod
 from ..obs import metrics as obs_metrics
 from . import bigint as bi
 from . import cipher_tensor as ct_mod
@@ -281,17 +283,20 @@ class ProtocolConfig:
     iters: int = 50
     spec: QuantSpec = QuantSpec()
     workload: str = "lasso"            # repro_torch.workloads registry name
-    cipher: str = "plain"              # plain | gold | vec (auto: runtime)
+    cipher: str = "plain"              # plain | gold | vec | auto
     key_bits: int = 256
     crt: bool = True
     collaborative: bool = False        # Algorithm 3 master/edge CRT split
     gold_batch: bool = True            # gold cipher: batched CRT fast path
     y_scale: str = "consistent"
     seed: int = 0
-    deadline: float | None = None      # runtime slice (not ported yet)
+    # straggler knobs, handled by the runtime's deadline mode: latency_fn,
+    # when given, replaces the CostModel compute charge with an explicit
+    # per-(edge, iter) response time (link hops and ticks add on top)
+    deadline: float | None = None      # straggler cutoff (simulated seconds)
     latency_fn: Callable[[int, int], float] | None = None
-    # core.churn.ChurnSchedule of leave/rejoin events (fail events need
-    # the runtime's deadline machinery and are rejected here); recycle:
+    # core.churn.ChurnSchedule of leave/rejoin/fail events (fail events
+    # need the runtime's deadline machinery); recycle:
     # an edge whose quantized (u1, u2) moved by at most recycle_tol
     # integer steps since its last encrypted round reuses that round's
     # decrypted chain (Zhang 1910.04581)
@@ -398,7 +403,10 @@ def check_plaintext_fits(key: gold.PaillierKey, spec: QuantSpec,
 
 def make_box(cfg: ProtocolConfig, n_dim: int, rng: random.Random,
              counter: "OpCounter", device=None):
-    """Key material + cipher box for ``cfg.cipher``; returns ``(box, key)``."""
+    """Key material + cipher box for ``cfg.cipher``; returns ``(box, key)``.
+
+    ``auto`` is the runtime's: it builds its AdaptiveBox itself (this
+    module imports the runtime only inside :func:`run_protocol`)."""
     if cfg.cipher == "plain":
         return PlainBox(cfg.spec, n_dim, counter=counter), None
     if cfg.cipher not in ("gold", "vec"):
@@ -424,13 +432,6 @@ def resolve_workload(cfg: ProtocolConfig,
     return workloads_mod.get(cfg.workload, rho=cfg.rho, lam=cfg.lam)
 
 
-def _check_supported(cfg: ProtocolConfig) -> None:
-    if cfg.deadline is not None or cfg.cipher == "auto":
-        raise NotImplementedError(
-            "deadline mode and cipher='auto' live in the event-driven "
-            "runtime, which arrives with the runtime slice of the port")
-
-
 def run_protocol(A: np.ndarray, y: np.ndarray, cfg: ProtocolConfig,
                  workload: "workloads_mod.Workload | None" = None,
                  health=False, device=None) -> ProtocolResult:
@@ -443,10 +444,16 @@ def run_protocol(A: np.ndarray, y: np.ndarray, cfg: ProtocolConfig,
     Γ₂(C_k), ⊕ the stored Γ₁(u3_k).  ``health`` turns on the live
     watchers (``stats["health"]``, outside the report core).
     ``stats["seconds"]`` (outside the core too) holds the wall seconds
-    per phase and per round.
+    per phase and per round.  ``deadline`` mode and ``cipher="auto"`` run
+    on the event-driven runtime (``runtime.runner.run_on_runtime``).
     """
+    if cfg.deadline is not None or cfg.cipher == "auto":
+        # straggler/deadline semantics and adaptive dispatch live in the
+        # event-driven runtime; the loop below is the synchronous driver
+        from ..runtime.runner import run_on_runtime
+        return run_on_runtime(A, y, cfg, workload=workload, health=health,
+                              device=device)
     dev = resolve_device(cfg.device if device is None else device)
-    _check_supported(cfg)
     monitor = health_mod.as_monitor(health)
     wl = resolve_workload(cfg, workload)
     rng = random.Random(cfg.seed)
@@ -625,6 +632,9 @@ def run_protocol(A: np.ndarray, y: np.ndarray, cfg: ProtocolConfig,
         churn={**churn_counts, "recycled": recycled})
     if monitor.enabled:
         stats["health"] = monitor.health_section()
+    # run-history ledger: one compact record per completed run (no-op
+    # when REPRO_LEDGER is off; never raises)
+    ledger_mod.record_run(stats, cfg=cfg, mode="sync", device=dev)
     stats["seconds"] = clock.seconds
     return ProtocolResult(x=st.x_prev, history=history, stats=stats,
                           stale_events=0)

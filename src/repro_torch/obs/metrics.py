@@ -1,12 +1,13 @@
 """The schema-versioned ``RunReport`` and the profiling event log.
 
-Port of ``repro.obs.metrics`` without ``Histogram``/``Registry`` (their
-only user is the runtime, which arrives with a later slice of the port):
-the protocol driver builds ``ProtocolResult.stats`` through
-:func:`build_run_report`; :func:`report_core`,
+Port of ``repro.obs.metrics``: both drivers (``core.protocol.run_protocol``
+and ``runtime.runner.run_on_runtime``) build ``ProtocolResult.stats``
+through :func:`build_run_report`; :func:`report_core`,
 :func:`reports_equal_modulo_timing`, :func:`diff_reports` and
-:func:`validate_report_core` are the conformance surface, and
-:func:`summary` the latency-distribution helper.
+:func:`validate_report_core` are the conformance surface;
+:func:`summary` / :class:`Histogram` the latency-distribution helpers
+(the coalescing queue's launch walls) and :class:`Registry` a per-run
+set of named counters, gauges and histograms.
 """
 from __future__ import annotations
 
@@ -35,6 +36,46 @@ def summary(values) -> dict:
             "p50": float(p50), "p95": float(p95), "p99": float(p99)}
 
 
+class Histogram:
+    """Append-only sample collector with a percentile summary."""
+
+    def __init__(self):
+        self.values: list[float] = []
+
+    def add(self, v: float) -> None:
+        self.values.append(float(v))
+
+    def summary(self) -> dict:
+        return summary(self.values)
+
+    def __len__(self) -> int:
+        return len(self.values)
+
+
+class Registry:
+    """Named counters / gauges / histograms for one run."""
+
+    def __init__(self):
+        self.counters: dict[str, int] = {}
+        self.gauges: dict[str, float] = {}
+        self.hists: dict[str, Histogram] = {}
+
+    def count(self, name: str, n: int = 1) -> None:
+        self.counters[name] = self.counters.get(name, 0) + n
+
+    def gauge(self, name: str, v: float) -> None:
+        self.gauges[name] = float(v)
+
+    def hist(self, name: str) -> Histogram:
+        return self.hists.setdefault(name, Histogram())
+
+    def snapshot(self) -> dict:
+        return {"counters": dict(sorted(self.counters.items())),
+                "gauges": dict(sorted(self.gauges.items())),
+                "histograms": {k: h.summary()
+                               for k, h in sorted(self.hists.items())}}
+
+
 _profile_events: list[dict] = []
 _profile_dropped = 0
 
@@ -44,8 +85,8 @@ PROFILE_LOG_CAP = 4096
 
 
 def record_profile(kind: str, **fields) -> None:
-    """Append one profiling event (warmup, kernel build) to the
-    process-global log."""
+    """Append one profiling event (warmup, calibration, kernel build) to
+    the process-global log."""
     global _profile_dropped
     if len(_profile_events) >= PROFILE_LOG_CAP:
         del _profile_events[0]

@@ -20,8 +20,9 @@ of modexp and modexp_fixed every group size at k = 64.  The two-half
 modexp_fixed launch (both CRT halves in one launch) is held against one
 plain call per half.  Small protocol runs on the card (the gold arm, the
 vec arm, the collaborative mode, a consensus family through secure
-aggregation and a churned run) are held against the same runs on the
-CPU.  These tests need an NVIDIA card and skip
+aggregation and a churned run) and small runs of the event-driven
+runtime (sync gold and vec, deadline gold) are held against the same
+runs on the CPU.  These tests need an NVIDIA card and skip
 without one; on the card run
 ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
@@ -184,6 +185,41 @@ def test_protocol_surface_on_card_equals_cpu_run(dev, arm):
                                    device="cpu")
     assert on_card.history.tobytes() == on_cpu.history.tobytes()
     assert report_core(on_card.stats) == report_core(on_cpu.stats)
+
+
+RUNTIME = {"gold_sync": dict(cipher="gold"),
+           "vec_sync": dict(cipher="vec"),
+           "gold_deadline": dict(cipher="gold", iters=4, deadline=0.2,
+                                 latency_fn=lambda k, t: 0.5 if k == 1
+                                 else 0.05)}
+
+
+@pytest.mark.parametrize("arm", RUNTIME)
+def test_runtime_on_card_equals_cpu_run(dev, arm):
+    """The event-driven runtime on the card (the K edges' matvecs fused
+    into one launch; a deadline run with a straggler behind a slow link
+    and held ops) gives the CPU run's history, stale events, RunReport
+    core and virtual clock."""
+    from repro_torch.runtime import LinkModel, runner
+    kw = dict(K=4, lam=0.05, iters=2, seed=0, key_bits=128,
+              spec=QuantSpec(1e6, -8.0, 8.0))
+    kw.update(RUNTIME[arm])
+    inst = make_lasso(24, 32, sparsity=0.1, noise=0.01, seed=1)
+    cfg = protocol.ProtocolConfig(**kw)
+    run_kw = dict(per_link={("master", "edge1"): LinkModel(latency_s=0.15)},
+                  coalesce_hold_ticks="auto", tick_s=1e-3) \
+        if cfg.deadline else {}
+    build.reset_launches()
+    on_card = runner.run_on_runtime(inst.A, inst.y, cfg, **run_kw)
+    for body in MAIN_PATH_BODIES:
+        assert build.LAUNCHES[body] > 0, build.LAUNCHES
+    on_cpu = runner.run_on_runtime(inst.A, inst.y, cfg, device="cpu",
+                                   **run_kw)
+    assert on_card.history.tobytes() == on_cpu.history.tobytes()
+    assert on_card.stale_events == on_cpu.stale_events
+    assert report_core(on_card.stats) == report_core(on_cpu.stats)
+    for key in ("iter_times", "launches", "coalesced_ops", "held_flushes"):
+        assert on_card.stats["runtime"][key] == on_cpu.stats["runtime"][key]
 
 
 def _width_modulus(k: int, kind: str) -> int:

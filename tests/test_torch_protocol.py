@@ -11,11 +11,13 @@ the same order — in the history bytes, the ordered ciphertext stream,
 the blinding rng's final state and the RunReport core.
 
 Also here: the port refuses ``device="cuda"`` without a card instead of
-running on the CPU, refuses the runtime's modes (``deadline``,
-``cipher="auto"``), which arrive with a later slice, and imports neither
-JAX nor the reference package anywhere.
+running on the CPU (``run_protocol`` and the runtime's
+``run_on_runtime``), hands ``deadline`` mode and ``cipher="auto"`` to the
+event-driven runtime as the reference does (and equals the reference's
+runs), and imports neither JAX nor the reference package anywhere.
 """
 import dataclasses
+import json
 import pathlib
 import re
 
@@ -176,11 +178,65 @@ def test_cuda_without_card_raises(inst, arm):
         protocol.run_protocol(inst.A, inst.y, cfg)
 
 
-@pytest.mark.parametrize("kw", [dict(cipher="auto"), dict(deadline=0.5)])
-def test_later_slices_raise_not_implemented(inst, kw):
-    cfg = _cfg(protocol, QuantSpec, **kw)
-    with pytest.raises(NotImplementedError):
-        protocol.run_protocol(inst.A, inst.y, cfg, device="cpu")
+def _auto_table(kinds) -> dict:
+    """A calibration table for the K = 4, Nk = 8, 128-bit runs under each
+    device kind of ``kinds``: enc/dec cheapest on scalar gold, ⊕ and the
+    matvec on vec."""
+    cheap = {"gold": ("enc", "dec"), "gold_batch": (),
+             "vec": ("add", "matvec")}
+    return {"version": 3, "entries": {
+        f"{kind}/{b}/{KEY_BITS}/{N // K}": {
+            **{op: 1e-6 if op in ops else 1e-3
+               for op in ("enc", "add", "matvec", "dec")},
+            "convert": 1e-8}
+        for kind in kinds for b, ops in cheap.items()}}
+
+
+@pytest.mark.parametrize("kw", [dict(cipher="auto"),
+                                dict(deadline=0.5,
+                                     latency_fn=lambda k, t: 0.3 * k)])
+def test_runtime_modes_delegate_to_the_runtime(inst, kw, tmp_path,
+                                               monkeypatch):
+    """``deadline`` and ``cipher="auto"`` run on the event-driven runtime
+    (the auto run on a calibration cache holding a hand-built table under
+    both packages' device kinds, so neither measures) and equal the
+    reference's runs."""
+    from repro.runtime.dispatch import device_kind as rdevice_kind
+    calib = tmp_path / "calib.json"
+    calib.write_text(json.dumps(_auto_table(("torch-cpu",
+                                             rdevice_kind()))))
+    monkeypatch.setenv("REPRO_CALIB_CACHE", str(calib))
+    ref = rproto.run_protocol(inst.A, inst.y, _cfg(rproto, RQuantSpec, **kw))
+    port = protocol.run_protocol(inst.A, inst.y,
+                                 _cfg(protocol, QuantSpec, **kw),
+                                 device="cpu")
+    assert port.history.tobytes() == ref.history.tobytes()
+    assert port.stale_events == ref.stale_events
+    assert report_core(port.stats) == rreport_core(ref.stats)
+    r, p = ref.stats["runtime"], port.stats["runtime"]
+    for key in ("mode", "virtual_time", "iter_times", "events", "launches",
+                "coalesced_ops", "held_flushes", "link_bytes"):
+        assert p[key] == r[key], key
+    assert p.get("dispatch") == r.get("dispatch")
+    if kw.get("cipher") == "auto":
+        assert p["dispatch"] == {"add:vec": 2 * K * ITERS,
+                                 "dec:gold": K * ITERS,
+                                 "enc:gold": K * (1 + 2 * ITERS),
+                                 "matvec:vec": K * ITERS}
+        loads = [e for e in p["profile"] if e["kind"] == "calibrate"]
+        assert loads[-1]["measured"] == 0
+    else:
+        assert p["mode"] == "deadline" and port.stale_events > 0
+
+
+def test_run_on_runtime_cuda_without_card_raises(inst):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: cuda is the valid default here")
+    from repro_torch.runtime.runner import run_on_runtime
+    cfg = _cfg(protocol, QuantSpec)
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="device 'cuda' requested"):
+            run_on_runtime(inst.A, inst.y, cfg, device=device)
 
 
 def test_port_imports_neither_jax_nor_the_reference():
