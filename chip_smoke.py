@@ -6,9 +6,11 @@ It imports only ``repro_torch`` (from ``src/``), never JAX or the JAX
 package, and:
 
 1. requires a CUDA card and prints its name and power limit;
-2. builds the three hand-written kernels from ``src/repro_torch/kernels/
-   csrc`` (one ``nvcc`` per source, in parallel) and prints the build time
-   and each instantiation's registers, stack frame and spills; every
+2. builds the three hand-written kernel sources from ``src/repro_torch/
+   kernels/csrc`` (one ``nvcc`` per source, in parallel; mulmod.cu and
+   modexp.cu also hold the per-row-modulus kernels of the serving path)
+   and prints the build time and each instantiation's registers, stack
+   frame and spills; every
    instantiation (each runs a group of threads per integer with its words
    in registers) must show no spills and a stack frame under 256 bytes;
 3. holds every kernel body (mulmod; modexp's four bodies; modexp_fixed's
@@ -83,9 +85,32 @@ package, and:
     phase did is held against its plain version (on the host) on sample
     rows of its first launch, and timed by CUDA events around each of its
     launches, beside its bound;
-11. prints the kernel table as one JSON line (each body's launches on the
-    main path, on the Barrett arm and on each path of steps 9 and 10),
-    then as its last line ``{"ok": true, "device": {...}}``.
+11. runs the serving path (``repro_torch.serve.protocol_engine``) at the
+    main path's key and cut, after timing each per-row-modulus body
+    (``mulmod_rows``, ``modexp_rows`` with both ladders) at n^2 over four
+    moduli beside its plain version on the same inputs: S1, a concurrent
+    ``ProtocolEngine`` of four gold LASSO tenants (seeds 0-3, 2 rounds),
+    each tenant's history, report core (``diff_reports`` clean) and rng
+    post-state equal to its solo ``run_on_runtime`` on the card, every
+    history equal to the plain chain, fused launches and fewer launches
+    than the solo runs' sum, the kernels' summed device time and the wall
+    time of the fused run beside the solo runs'; S2, mixed widths and
+    arms (2,048- and 1,024-bit gold tenants, a vec tenant, one tenant
+    admitted late and one cancelled after a round), no launch mixing
+    widths and every tenant equal to its solo run; each with the launch
+    counts set to 0 just before it and read just after.  Every rows shape
+    they launch is held against its plain version (on the card) on sample
+    rows of its first launch, and timed by CUDA events beside its bound.
+    S3 runs ``python -m repro_torch.launch.serve_sim`` with 8 tenants and
+    a trace, ``serve_sim --admission auto --tune`` into the calibration
+    cache, ``python -m repro_torch.obs.report --json`` on the trace and
+    ``python -m repro_torch.obs.sentinel --json`` on this run's ledger as
+    subprocesses (the sentinel may report perf findings, exit 1; exit 2
+    or a correctness finding fails);
+12. prints the kernel table as one JSON line (each body's launches on the
+    main path — for the per-row bodies on S1 — on the Barrett arm and on
+    each path of steps 9, 10 and 11), then as its last line ``{"ok":
+    true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
 result.  Exact integer work: the tolerance of every comparison is zero.
@@ -136,6 +161,13 @@ BODY_SOURCES = {
                                  "src/repro/kernels/modexp.py:62"),
     "modexp_fixed[barrett]": ("modexp_fixed.cu",
                               "src/repro/kernels/modexp.py:69"),
+    # the serving path's per-row-modulus bodies; the reference runs them
+    # as jitted jnp, not Pallas
+    "mulmod_rows": ("mulmod.cu", "src/repro/kernels/ops.py:409"),
+    "modexp_rows[barrett,win4]": ("modexp.cu",
+                                  "src/repro/kernels/ops.py:417"),
+    "modexp_rows[barrett,binary]": ("modexp.cu",
+                                    "src/repro/kernels/ops.py:417"),
 }
 MAIN_PATH_BODIES = ("mulmod", "modexp[montgomery,win4]",
                     "modexp_fixed[montgomery]")
@@ -221,12 +253,15 @@ def build_kernels(build):
             f"{name} keeps rows in local memory: {r}"
     templates = {name.split("<")[0] for name in rows}
     assert templates == {"mulmod_kernel", "modexp_kernel",
-                         "modexp_fixed_kernel"}, \
+                         "modexp_fixed_kernel", "mulmod_rows_kernel",
+                         "modexp_rows_kernel"}, \
         f"kernel templates in the ptxas report: {sorted(templates)}"
-    # every body of modexp (window x product) and of modexp_fixed
+    # every body of modexp (window x product), of modexp_fixed and of the
+    # per-row modexp (window)
     for template, bodies in (("modexp_kernel", (
             ",true,true>", ",false,true>", ",true,false>", ",false,false>")),
-            ("modexp_fixed_kernel", (",true>", ",false>"))):
+            ("modexp_fixed_kernel", (",true>", ",false>")),
+            ("modexp_rows_kernel", (",true>", ",false>"))):
         for tail in bodies:
             assert any(n.startswith(template + "<") and n.endswith(tail)
                        for n in rows), f"no {template}<...{tail}"
@@ -1475,6 +1510,500 @@ def run_edge_sim(calib):
     return secs
 
 
+# ---------------------------------------------------------------------------
+# the serving path: ProtocolEngine, the rows kernels, serve_sim, the CLIs
+# ---------------------------------------------------------------------------
+
+SERVE_PATHS = ("serve_s1", "serve_s2")
+#: the per-row-modulus bodies S1 launches (the binary ladder runs only
+#: under REPRO_MODEXP_METHOD=binary)
+SERVE_BODIES = ("mulmod_rows", "modexp_rows[barrett,win4]")
+SERVE_ITERS = 2
+SERVE_SEEDS = (0, 1, 2, 3)
+#: S2's second key width
+SERVE_SMALL_BITS = 1024
+#: S2: virtual seconds by which one tenant's admission is staggered
+STAGGER_S = 0.05
+#: the rows bodies timed beside their plain versions: rows, moduli
+ROWS_TIMED_B, ROWS_MODULI = 4608, 4
+
+
+def time_rows_kernels(bi, ops, lm, mx, geometry, ptxas, dev):
+    """Each per-row-modulus body at k = 128 (n^2 of a 2,048-bit key),
+    B = ROWS_TIMED_B rows over ROWS_MODULI moduli, 64-bit exponents (the
+    matvec's): the kernel timed beside its plain version on the same
+    inputs (on the card), the two held against each other and against
+    Python ints on a sample; and the win4 body with 2,048-bit exponents
+    (r^n, c^lam) held against Python ints.  Returns {body: row}."""
+    rng = random.Random(SEED + 5)
+    ms = [rng.getrandbits(4096) | (1 << 4095) | 1 for _ in range(ROWS_MODULI)]
+    B = ROWS_TIMED_B
+    per_row = [ms[i % ROWS_MODULI] for i in range(B)]
+    rm = ops.rows_modulus(per_row, 512, dev)
+    L16 = rm.table.L16
+
+    def rows(n, L):
+        ints = [rng.getrandbits(16 * L) for _ in range(n)]
+        return ints, torch.as_tensor(bi.from_ints(ints, L), device=dev)
+
+    a, at = rows(B, L16)
+    b, bt = rows(B, L16)
+    e, et = rows(B, 4)
+    out = {}
+    cases = (
+        ("mulmod_rows", "mulmod_rows_kernel",
+         lambda: lm.mulmod_rows_cuda(at, bt, rm),
+         lambda: lm.mulmod_rows_plain(at, bt, rm),
+         [x * y % m for x, y, m in zip(a[:4], b[:4], per_row)],
+         word_products("mulmod", 128), B * 3 * L16 * 4, 0, 20),
+        ("modexp_rows[barrett,win4]", "modexp_rows_kernel",
+         lambda: mx.modexp_rows_cuda(at, et, rm, "win4"),
+         lambda: mx.modexp_rows_plain(at, et, rm, "win4"),
+         [pow(x, y, m) for x, y, m in zip(a[:4], e[:4], per_row)],
+         word_products("modexp", 128, exp_bits=64, mont=False),
+         B * (2 * L16 + 4) * 4, 64, 5),
+        ("modexp_rows[barrett,binary]", "modexp_rows_kernel",
+         lambda: mx.modexp_rows_cuda(at, et, rm, "binary"),
+         lambda: mx.modexp_rows_plain(at, et, rm, "binary"),
+         [pow(x, y, m) for x, y, m in zip(a[:4], e[:4], per_row)],
+         word_products("modexp", 128, exp_bits=64, mont=False, win4=False),
+         B * (2 * L16 + 4) * 4, 64, 5))
+    for name, symbol, kernel, plain, want, work, nbytes, exp_bits, reps \
+            in cases:
+        ms_, event_ms, got = kernel_ms(kernel, reps, symbol)
+        plain_ms, ref = once_ms(plain)
+        err = compare(bi, name, got, ref, want)
+        bnd, by = bound_ms(work, B, nbytes + B * 4)
+        g = geometry.launch_geometry(name, B, 128)
+        tail = "" if name == "mulmod_rows" else \
+            f",{'true' if name.endswith('win4]') else 'false'}"
+        inst_name = f"{symbol}<{g.tpi},{g.words}{tail}>"
+        regs = ptxas.get(inst_name, {})
+        assert regs.get("spill_stores") == 0 and \
+            regs.get("stack", MAX_STACK) < MAX_STACK, (inst_name, regs)
+        out[name] = dict(shape=f"B={B} k=128 over {ROWS_MODULI} moduli"
+                         + (f", {exp_bits}-bit exps" if exp_bits else ""),
+                         B=B, k=128, ms=ms_, event_ms=event_ms,
+                         plain_ms=plain_ms, max_abs_err=err, bound_ms=bnd,
+                         bound_by=by, instantiation=inst_name, **regs)
+        log(f"  {name} B={B} k=128 ({inst_name}: {regs.get('registers')} "
+            f"registers, {regs.get('stack')} B stack, "
+            f"{regs.get('spill_stores')} B spills): {ms_:.4f} ms on the "
+            f"device, {event_ms:.4f} ms per call (plain {plain_ms:.1f} ms, "
+            f"bound {bnd:.4f} ms), equal")
+    # 2,048-bit exponents, the enc and dec ladders' width
+    el, elt = rows(8, 128)
+    long_ms, got = once_ms(lambda: ops.modexp_rows(
+        at[:8], elt, ops.rows_modulus(per_row[:8], 512, dev)))
+    assert bi.to_ints(got) == [pow(x, y, m) for x, y, m
+                               in zip(a[:8], el, per_row[:8])], \
+        "modexp_rows with 2,048-bit exponents differs from Python ints"
+    log(f"  modexp_rows[barrett,win4] B=8 k=128 2048-bit exps: "
+        f"{long_ms:.2f} ms (one call), equal to Python ints")
+    return out
+
+
+class LaunchRecorder:
+    """While installed, wraps the five kernel wrappers: CUDA events around
+    every launch, keyed by (body, B, k); the first launch of each
+    per-row-modulus shape (body, B, k, exponent limbs) keeps sample rows
+    of its operands, its rows' moduli and its result on the card.
+    :meth:`device_ms` sums the launches' event times; :meth:`check_rows`
+    holds every sample against the plain version (on the card, one call
+    per body and exponent width: the 2,048-bit ladders of the plain
+    version take minutes on the host) and returns one row per shape."""
+
+    def __init__(self, mx, lm, geometry):
+        self.mx, self.lm, self.geometry = mx, lm, geometry
+        self.events = defaultdict(list)
+        self.samples = {}
+        self._real = {}
+
+    def _timed(self, shape, fn):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        stop.record()
+        self.events[shape].append((start, stop))
+        return out
+
+    def _sample_rows(self, key, rm, **tensors):
+        sel = torch.as_tensor(_sample(key[1]), device=rm.midx.device)
+        t = rm.midx[sel].long()
+        self.samples[key] = dict(
+            {name: x[sel].clone() for name, x in tensors.items()},
+            m16=rm.table.m16[t], mu16=rm.table.mu16[t],
+            moduli=len(rm.moduli), table=rm.table)
+
+    def __enter__(self):
+        mx, lm, geometry = self.mx, self.lm, self.geometry
+        real = self._real = {
+            (lm, "mulmod_cuda"): lm.mulmod_cuda,
+            (lm, "mulmod_rows_cuda"): lm.mulmod_rows_cuda,
+            (mx, "modexp_cuda"): mx.modexp_cuda,
+            (mx, "modexp_rows_cuda"): mx.modexp_rows_cuda,
+            (mx, "_launch_fixed"): mx._launch_fixed}
+
+        def mulmod_cuda(a, b, dm, tpi=None):
+            return self._timed(("mulmod", int(a.shape[0]), dm.L32),
+                               lambda: real[(lm, "mulmod_cuda")](a, b, dm,
+                                                                 tpi))
+
+        def modexp_cuda(base, exp, dm, method, reduce_impl, tpi=None):
+            body = geometry.body_name("modexp", reduce_impl, method)
+            return self._timed((body, int(base.shape[0]), dm.L32),
+                               lambda: real[(mx, "modexp_cuda")](
+                                   base, exp, dm, method, reduce_impl, tpi))
+
+        def launch_fixed(base, B0, windows, dms, mont, tpi):
+            body = geometry.body_name("modexp_fixed",
+                                      "montgomery" if mont else "barrett")
+            return self._timed((body, int(base.shape[0]), dms[0].L32),
+                               lambda: real[(mx, "_launch_fixed")](
+                                   base, B0, windows, dms, mont, tpi))
+
+        def mulmod_rows_cuda(a, b, rm, tpi=None):
+            shape = ("mulmod_rows", int(a.shape[0]), rm.table.L32)
+            out = self._timed(shape, lambda: real[(lm, "mulmod_rows_cuda")](
+                a, b, rm, tpi))
+            key = shape + (0,)
+            if key not in self.samples and shape[1]:
+                self._sample_rows(key, rm, a=a, b=b, out=out)
+            return out
+
+        def modexp_rows_cuda(base, exp, rm, method, tpi=None):
+            body = geometry.body_name("modexp_rows", "barrett", method)
+            shape = (body, int(base.shape[0]), rm.table.L32)
+            out = self._timed(shape, lambda: real[(mx, "modexp_rows_cuda")](
+                base, exp, rm, method, tpi))
+            key = shape + (int(exp.shape[1]),)
+            if key not in self.samples and shape[1]:
+                self._sample_rows(key, rm, base=base, exp=exp, out=out)
+            return out
+
+        for (mod, attr), fn in (((lm, "mulmod_cuda"), mulmod_cuda),
+                                ((lm, "mulmod_rows_cuda"), mulmod_rows_cuda),
+                                ((mx, "modexp_cuda"), modexp_cuda),
+                                ((mx, "modexp_rows_cuda"), modexp_rows_cuda),
+                                ((mx, "_launch_fixed"), launch_fixed)):
+            setattr(mod, attr, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, attr), fn in self._real.items():
+            setattr(mod, attr, fn)
+        return False
+
+    def device_ms(self):
+        """Summed event milliseconds of every recorded launch, then
+        cleared (the events of one run)."""
+        torch.cuda.synchronize()
+        total = sum(a.elapsed_time(b) for evs in self.events.values()
+                    for a, b in evs)
+        self.events.clear()
+        return total
+
+    def shape_ms(self):
+        """{(body, B, k): (launches, median ms)} of the events so far."""
+        torch.cuda.synchronize()
+        return {shape: (len(evs), float(np.median(
+            [a.elapsed_time(b) for a, b in evs])))
+            for shape, evs in self.events.items()}
+
+    def check_rows(self, timed):
+        """Every sampled rows shape against the plain version on the card;
+        ``timed`` is :meth:`shape_ms` of the run that launched them."""
+        lm, mx = self.lm, self.mx
+        groups = defaultdict(list)
+        for key in sorted(self.samples):
+            body, _, k, le16 = key
+            groups[(body, k, le16)].append(key)
+        want, secs = {}, []
+        for (body, k, le16), keys in groups.items():
+            s = [self.samples[k] for k in keys]
+            dm = dataclasses.replace(
+                s[0]["table"], m16=torch.cat([x["m16"] for x in s]),
+                mu16=torch.cat([x["mu16"] for x in s]))
+            t0 = time.perf_counter()
+            if body == "mulmod_rows":
+                out = lm.mulmod_plain(torch.cat([x["a"] for x in s]),
+                                      torch.cat([x["b"] for x in s]), dm)
+            else:
+                out = mx.modexp_plain(torch.cat([x["base"] for x in s]),
+                                      torch.cat([x["exp"] for x in s]), dm,
+                                      body.split(",")[1].rstrip("]"),
+                                      "barrett")
+            torch.cuda.synchronize()
+            secs.append((body, k, 16 * le16, time.perf_counter() - t0))
+            i = 0
+            for k, x in zip(keys, s):
+                n = x["out"].shape[0]
+                want[k] = out[i:i + n]
+                i += n
+        log("  plain versions of the sampled rows on the card: " + ", ".join(
+            f"{body} k={k}" + (f" {bits}-bit exps" if bits else "")
+            + f" {t:.1f} s" for body, k, bits, t in secs))
+        rows = []
+        for key in sorted(self.samples):
+            body, B, k, le16 = key
+            got = self.samples[key]["out"]
+            err = int((got.long() - want[key].long()).abs().max())
+            assert err == 0, f"{key}: kernel differs from its plain " \
+                f"version on sample rows (max abs limb error {err})"
+            L16 = int(got.shape[1])
+            if body == "mulmod_rows":
+                work, moved = word_products("mulmod", k), B * 3 * L16 * 4
+            else:
+                work = word_products("modexp", k, exp_bits=16 * le16,
+                                     mont=False,
+                                     win4=body.endswith("win4]"))
+                moved = B * (2 * L16 + le16) * 4
+            n, ms = timed[(body, B, k)]
+            bnd, by = bound_ms(work, B, moved + B * 4)
+            rows.append(dict(body=body, B=B, k=k, exp_bits=16 * le16,
+                             moduli=self.samples[key]["moduli"],
+                             launches=n, ms=ms, bound_ms=bnd, bound_by=by,
+                             sample_rows=int(got.shape[0]),
+                             max_abs_err=err))
+        return rows
+
+
+def serve_config(protocol, QuantSpec, cipher, seed, key_bits=None,
+                 iters=SERVE_ITERS):
+    """The main path's LASSO config for one tenant (its seed and key)."""
+    return replace(lasso_config(protocol, QuantSpec, cipher, iters),
+                   seed=seed, key_bits=key_bits or KEY_BITS)
+
+
+def solo_run(runner, inst, cfg):
+    """A tenant's solo reference on the card: ``run_on_runtime``'s
+    build/collect split, keeping the runtime for its rng state."""
+    rt, master, wl, mode = runner.build_runtime(inst.A, inst.y, cfg)
+    master.start()
+    rt.sched.run()
+    assert master.done
+    return runner.collect_result(rt, master, wl, mode), rt
+
+
+def check_tenants(path, eng, results, solos, report_core, diff_reports):
+    """Every tenant equals its solo run: report core (``diff_reports``
+    clean), history bytes and the blinding rng's post-run state."""
+    for tid, (solo, solo_rt) in solos.items():
+        got = results[tid]
+        diff = diff_reports(got.stats, solo.stats)
+        assert not diff and report_core(got.stats) == \
+            report_core(solo.stats), f"{path} {tid}: {diff}"
+        assert got.history.tobytes() == solo.history.tobytes(), \
+            f"{path} {tid}: history differs from its solo run"
+        box = eng.tenants[tid].rt.box
+        assert box.rng.getstate() == solo_rt.box.rng.getstate(), \
+            f"{path} {tid}: rng state differs from its solo run"
+
+
+def run_serve_s1(runner, protocol, QuantSpec, make_lasso, report_core,
+                 diff_reports, build, ProtocolEngine, recorder,
+                 plain_history):
+    """S1: four gold-batched LASSO tenants (seeds 0-3) at the main path's
+    key and cut, SERVE_ITERS rounds each, in one concurrent engine; each
+    against its solo ``run_on_runtime`` on the card."""
+    inst = make_lasso(M, N, sparsity=0.1, noise=0.01, seed=SEED)
+    solos, solo_wall = {}, 0.0
+    recorder.device_ms()
+    for s in SERVE_SEEDS:
+        t0 = time.perf_counter()
+        solos[f"t{s}"] = solo_run(runner, inst, serve_config(
+            protocol, QuantSpec, "gold", s))
+        torch.cuda.synchronize()
+        solo_wall += time.perf_counter() - t0
+    solo_device = recorder.device_ms()
+    solo_launches = sum(res.stats["runtime"]["launches"]
+                        for res, _ in solos.values())
+    build.reset_launches()
+    t0 = time.perf_counter()
+    eng = ProtocolEngine(admission="concurrent")
+    for s in SERVE_SEEDS:
+        eng.admit(inst.A, inst.y, serve_config(protocol, QuantSpec, "gold",
+                                               s), tid=f"t{s}")
+    t_admit = time.perf_counter() - t0
+    results = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, shapes = dict(build.LAUNCHES), dict(build.SHAPE_LAUNCHES)
+    timed = recorder.shape_ms()
+    fused_device = recorder.device_ms()
+    check_tenants("S1", eng, results, solos, report_core, diff_reports)
+    for tid, res in results.items():
+        assert res.history.tobytes() == \
+            plain_history[:SERVE_ITERS].tobytes(), \
+            f"S1 {tid}: history differs from the plain chain"
+    serve = eng.stats()["serve"]
+    assert serve["fused_launches"] > 0, serve
+    assert serve["launches"] < solo_launches, (serve["launches"],
+                                               solo_launches)
+    check_launches("serving path (S1)", launches, SERVE_BODIES)
+    rounds = {tid: res.stats["runtime"]["iter_times"]
+              for tid, res in results.items()}
+    # every tenant's phase clock laps at its own round ends, device
+    # synchronized; the tenants move in step, so t0's is the fused round
+    fused_rounds = results["t0"].stats["seconds"]["rounds"]
+    solo_rounds = {tid: solo.stats["seconds"]["rounds"]
+                   for tid, (solo, _) in solos.items()}
+    log(f"  S1: wall {wall:.2f} s (admission, keygen included, "
+        f"{t_admit:.2f} s), virtual time {serve['virtual_time']:.4f} s; "
+        f"round completion times (virtual) " + json.dumps(rounds))
+    log("  S1 rounds (wall s): fused " + ", ".join(
+        f"{t:.4f}" for t in fused_rounds) + "; solo " + json.dumps(
+        {tid: [round(t, 4) for t in r] for tid, r in solo_rounds.items()}))
+    log("  S1 serve: " + json.dumps(
+        {k: serve[k] for k in ("launches", "rows_launches", "fused_launches",
+                               "fused_ops")}) + f"; solo launches "
+        f"{solo_launches}")
+    log(f"  S1 kernel device ms: fused {fused_device:.1f} ms in "
+        f"{wall:.2f} s wall; the 4 solo runs {solo_device:.1f} ms in "
+        f"{solo_wall:.2f} s wall")
+    log(f"  S1 launches {launches}; rows bodies by shape " + json.dumps(
+        [{"body": body, "B": B, "k": k, "launches": n}
+         for (body, B, k), n in sorted(shapes.items()) if "rows" in body]))
+    log(f"  S1: every tenant's history, report core and rng state equal "
+        f"its solo run; every history equals the plain chain")
+    summary = dict(wall_s=wall, admit_s=t_admit,
+                   virtual_s=serve["virtual_time"],
+                   fused_rounds_s=fused_rounds, solo_rounds_s=solo_rounds,
+                   fused_device_ms=fused_device, solo_device_ms=solo_device,
+                   solo_wall_s=solo_wall, solo_launches=solo_launches,
+                   **{k: serve[k] for k in ("launches", "rows_launches",
+                                            "fused_launches", "fused_ops")})
+    return summary, solos, launches, shapes, timed
+
+
+def run_serve_s2(runner, protocol, QuantSpec, make_lasso, report_core,
+                 diff_reports, build, ProtocolEngine, recorder, solos):
+    """S2: mixed widths and arms — two 2,048-bit gold tenants (S1's seeds
+    0 and 1, the second admitted STAGGER_S virtual seconds late; their
+    solo runs are S1's), two SERVE_SMALL_BITS gold tenants (the second
+    cancelled after one round) and a vec tenant of that width, which runs
+    solo groups.
+    No launch mixes limb widths; every tenant equals its solo run."""
+    inst = make_lasso(M, N, sparsity=0.1, noise=0.01, seed=SEED)
+    plan = [("a", "gold", 0, KEY_BITS, 0.0, None),
+            ("b", "gold", 1, KEY_BITS, STAGGER_S, None),
+            ("c", "gold", 2, SERVE_SMALL_BITS, 0.0, None),
+            ("d", "gold", 3, SERVE_SMALL_BITS, 0.0, 1),
+            ("e", "vec", 4, SERVE_SMALL_BITS, 0.0, None)]
+    refs = {"a": solos["t0"], "b": solos["t1"]}
+    for tid, cipher, seed, bits, _, cancel in plan[2:]:
+        refs[tid] = solo_run(runner, inst, serve_config(
+            protocol, QuantSpec, cipher, seed, key_bits=bits,
+            iters=cancel or SERVE_ITERS))
+    recorder.device_ms()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    eng = ProtocolEngine(admission="concurrent")
+    for tid, cipher, seed, bits, at, cancel in plan:
+        eng.admit(inst.A, inst.y, serve_config(protocol, QuantSpec, cipher,
+                                               seed, key_bits=bits),
+                  tid=tid, admit_at=at, cancel_after=cancel)
+    results = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, shapes = dict(build.LAUNCHES), dict(build.SHAPE_LAUNCHES)
+    timed = recorder.shape_ms()
+    device = recorder.device_ms()
+    check_tenants("S2", eng, results, refs, report_core, diff_reports)
+    width = {tid: (eng.tenants[tid].rt.key.n2.bit_length() + 7) // 8
+             for tid, *_ in plan}
+    for entry in eng.collector.fused_log:
+        assert {width[t] for t in entry["tenants"]} == \
+            {entry["limb_bytes"]}, f"S2 launch mixes widths: {entry}"
+        assert "e" not in entry["tenants"], entry
+    serve = eng.stats()["serve"]
+    per = serve["per_tenant"]
+    assert per["d"]["cancelled"] and per["d"]["rounds"] == 1, per["d"]
+    assert per["b"]["started_at"] >= STAGGER_S, per["b"]
+    assert serve["fused_launches"] > 0, serve
+    check_launches("serving path (S2)", launches, SERVE_BODIES)
+    widths = sorted({e["limb_bytes"] for e in eng.collector.fused_log})
+    log(f"  S2: wall {wall:.2f} s, virtual {serve['virtual_time']:.4f} s, "
+        f"kernel device ms {device:.1f}; serve " + json.dumps(
+            {k: serve[k] for k in ("launches", "rows_launches",
+                                   "fused_launches", "fused_ops")})
+        + f"; fused widths (bytes of n^2) {widths}, never mixed; tenant d "
+        f"cancelled after 1 round, b started at {per['b']['started_at']} s; "
+        f"every tenant equals its solo run")
+    log(f"  S2 launches {launches}")
+    return dict(wall_s=wall, virtual_s=serve["virtual_time"],
+                device_ms=device, fused_widths=widths,
+                **{k: serve[k] for k in ("launches", "rows_launches",
+                                         "fused_launches", "fused_ops")}), \
+        launches, shapes, timed
+
+
+def run_cli(args, timeout, ok_codes=(0,)):
+    """``python -m <args>`` from the repository root; returns its exit
+    code, stdout and wall seconds (raises on another exit code)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *args], capture_output=True,
+                          text=True, timeout=timeout, env=env, cwd=REPO)
+    secs = time.perf_counter() - t0
+    assert proc.returncode in ok_codes, \
+        f"{args[0]} exited {proc.returncode}:\n{proc.stderr[-4000:]}"
+    return proc.returncode, proc.stdout, secs
+
+
+def run_serve_clis(calib):
+    """S3: ``serve_sim`` at the main path's key and cut with 8 tenants and
+    a trace; ``serve_sim --admission auto --tune`` at a smaller cut into
+    the calibration cache ``calib``; ``obs.report --json`` on the trace;
+    ``obs.sentinel --json`` on this run's ledger (exit 2 or a correctness
+    finding fails)."""
+    trace = os.path.join(REPO, "build", "serve.trace.json")
+    _, out, secs = run_cli(
+        ["repro_torch.launch.serve_sim", "--tenants", "8", "--key-bits",
+         str(KEY_BITS), "--edges", str(K), "--block", str(NK), "--iters",
+         str(SERVE_ITERS), "--trace", trace], 900)
+    sim = json.loads(out)
+    assert sim["fused_launches"] > 0 and sim["tenants"] == 8, sim
+    assert all(p["rounds"] == SERVE_ITERS for p in sim["per_tenant"].values())
+    assert sim["device"] == "torch-cuda-" + \
+        torch.cuda.get_device_name(0).replace("/", "-"), sim["device"]
+    log(f"  serve_sim --tenants 8: exit 0 in {secs:.1f} s; " + json.dumps(
+        {k: v for k, v in sim.items() if k != "per_tenant"},
+        separators=(",", ":")))
+    if os.path.exists(calib):
+        os.remove(calib)
+    _, out, tune_s = run_cli(
+        ["repro_torch.launch.serve_sim", "--tenants", "4", "--key-bits",
+         "1024", "--edges", str(K), "--block", "64", "--iters", "1",
+         "--admission", "auto", "--tune", "--tune-widths", "1,2,4,8",
+         "--calib-cache", calib], 900)
+    tuned_doc, _, auto_doc = out.partition("\n}\n")
+    tuned = json.loads(tuned_doc + "\n}")["tuned"]
+    auto = json.loads(auto_doc)
+    assert auto["window"] == tuned["window"] and \
+        not auto["auto_fallback_sequential"], (tuned, auto)
+    log(f"  serve_sim --admission auto --tune: exit 0 in {tune_s:.1f} s; "
+        f"tuned {json.dumps(tuned)}; auto run window {auto['window']}, "
+        f"{auto['launches']} launches, {auto['fused_launches']} fused")
+    _, out, _ = run_cli(["repro_torch.obs.report", trace, "--json"], 300)
+    rep = json.loads(out)
+    assert rep["kind"] == "summary" and rep["spans"] > 0 and rep["core"]
+    log(f"  obs.report --json: exit 0, {rep['spans']} spans, core sections "
+        f"{sorted(rep['core'])}")
+    rc, out, _ = run_cli(["repro_torch.obs.sentinel", "--json", "--ledger",
+                          os.environ["REPRO_LEDGER"]], 300, ok_codes=(0, 1))
+    sent = json.loads(out)
+    drift = [f for f in sent["findings"] if f["check"] == "correctness"]
+    assert not drift, f"sentinel: correctness drift {drift}"
+    log(f"  obs.sentinel --json: exit {rc}, {sent['records']} records, "
+        f"baseline n={sent['baseline_n']}, findings " + json.dumps(
+            [f["message"] for f in sent["findings"]]))
+    return dict(serve_sim_s=secs, tune_s=tune_s, tuned=tuned,
+                sentinel_rc=rc, sentinel_findings=len(sent["findings"]),
+                serve_sim=sim)
+
+
 def main():
     require_card()
     sys.path.insert(0, os.path.join(REPO, "src"))
@@ -1490,8 +2019,9 @@ def main():
     from repro_torch.kernels import limb_mulmod as lm
     from repro_torch.kernels import modexp as mx
     from repro_torch.kernels import montgomery as mg
-    from repro_torch.obs.metrics import report_core
+    from repro_torch.obs.metrics import diff_reports, report_core
     from repro_torch.runtime import LinkModel, dispatch, runner
+    from repro_torch.serve.protocol_engine import ProtocolEngine
     dev = torch.device("cuda")
     # the run-history ledger and the calibration cache stay in the checkout
     os.environ["REPRO_LEDGER"] = os.path.join(REPO, "build", "ledger.jsonl")
@@ -1596,6 +2126,32 @@ def main():
         "calibrate_s": calib_s, "auto_routes": routes,
         "edge_sim_s": edge_sim_s, "launches": runtime}))
 
+    # the serving path, after every earlier phase
+    log("per-row-modulus kernels vs plain versions at n^2, timed:")
+    times.update(time_rows_kernels(bi, ops, lm, mx, geometry, ptxas, dev))
+    serving, serve_launches = {}, {}
+    with LaunchRecorder(mx, lm, geometry) as launch_rec:
+        log(f"serving S1: ProtocolEngine, {len(SERVE_SEEDS)} gold LASSO "
+            f"tenants, {KEY_BITS}-bit keys, K={K}, Nk={NK}, "
+            f"{SERVE_ITERS} rounds each, against their solo runs:")
+        (serving["s1"], solos, serve_launches["serve_s1"], s1_shapes,
+         s1_timed) = run_serve_s1(
+            runner, protocol, QuantSpec, make_lasso, report_core,
+            diff_reports, build, ProtocolEngine, launch_rec, plain_history)
+        log("serving S2: 2,048- and 1,024-bit gold tenants, a vec tenant, "
+            "a staggered and a cancelled tenant:")
+        (serving["s2"], serve_launches["serve_s2"], s2_shapes,
+         s2_timed) = run_serve_s2(
+            runner, protocol, QuantSpec, make_lasso, report_core,
+            diff_reports, build, ProtocolEngine, launch_rec, solos)
+    serve_shapes = launch_rec.check_rows({**s2_timed, **s1_timed})
+    log("rows launch shapes of S1 and S2, each equal to its plain version "
+        "on sample rows: " + json.dumps(serve_shapes))
+    log("serving S3: serve_sim, obs.report and obs.sentinel as "
+        "subprocesses:")
+    serving["s3"] = run_serve_clis(calib)
+    log("serving: " + json.dumps(serving))
+
     log(f"script: {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
@@ -1604,7 +2160,11 @@ def main():
         source, replaces = BODY_SOURCES[body]
         entry = {
             "name": body, "route": "cuda", "source": f"{CSRC}/{source}",
-            "replaces": replaces, "launches": launches[body],
+            "replaces": replaces,
+            # this slice's bodies: their launches on the serving path (S1)
+            "launches": (serve_launches["serve_s1"][body]
+                         if body.startswith(("mulmod_rows", "modexp_rows"))
+                         else launches[body]),
             "barrett_arm_launches": blaunches[body],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -1615,6 +2175,8 @@ def main():
         entry["collab_encrypt_launches"] = enc_launches[body]
         entry.update({f"{path}_launches": runtime[path][body]
                       for path in RUNTIME_PATHS})
+        entry.update({f"{path}_launches": serve_launches[path][body]
+                      for path in SERVE_PATHS})
         timed = [r for r in shapes if r["body"] == body]
         if len(timed) > 1:                     # each main-path shape
             entry["shapes"] = [
@@ -1645,6 +2207,14 @@ def main():
                 dict(r, **{f"{path}_launches": rt_shape_launches[path].get(
                     (body, r["B"], r["k"]), 0) for path in RUNTIME_PATHS})
                 for r in rt_new)
+        rows_new = [r for r in serve_shapes if r["body"] == body]
+        if rows_new:                           # the serving path's shapes
+            entry.setdefault("shapes", []).extend(
+                dict(r, serve_s1_launches=s1_shapes.get(
+                    (body, r["B"], r["k"]), 0),
+                    serve_s2_launches=s2_shapes.get(
+                        (body, r["B"], r["k"]), 0))
+                for r in rows_new)
         kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -334,3 +334,192 @@ def warmup(bk: BatchKey, shapes: Sequence) -> dict:
     from ..obs.metrics import record_profile
     record_profile("warmup", **out)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Multi-key "rows" layer (serving): one launch, many tenants' keys.
+#
+# The functions above are keyed per BatchKey — right for a solo run, of
+# no use to a serving engine fusing ops across tenants with DIFFERENT
+# keys.  These run a whole cluster of same-WIDTH Paillier ops (the same
+# exact byte length of n^2, :func:`rows_sig`) on the per-row-modulus
+# kernels (``ops.mulmod_rows``/``modexp_rows``/``prod_rows``), where each
+# row reduces mod its own tenant's n^2.  Per-tenant keys make the rows
+# independent, so fusing them changes nothing but the launch count.
+#
+# They are PURE: no counter bumps, no rng draws — the coalescer replays
+# the boxes' telemetry and blinding-draw order around them.  Formulas are
+# ``paillier.encrypt_crt``/``decrypt_crt``'s, computed at n^2 without the
+# CRT halves (each row carries only its tenant's n^2), in exact integer
+# arithmetic, so results are bit-identical to the solo gold path.
+# Ciphertexts stay limb-resident: tenants' ``CipherTensor.limbs`` of one
+# width concatenate on the device, and the results come back as (rows,
+# L16(n^2)) int32 tensors per tenant; decryption returns plaintext ints,
+# as ``dec_vec`` does.
+#
+# ``items`` below is always one entry per tenant: ``(key, ...operands)``;
+# returns are per-tenant, in the same order.
+# ---------------------------------------------------------------------------
+
+def rows_sig(key: gold.PaillierKey) -> tuple:
+    """Fusion signature: ops fuse across tenants iff this matches.
+
+    The exact byte length of n^2 (Barrett requires the top byte
+    populated, so equal bit-class keys share a width)."""
+    return ("pail", (key.n2.bit_length() + 7) // 8)
+
+
+def _rows_cluster_width(items) -> int:
+    widths = {rows_sig(item[0])[1] for item in items}
+    if len(widths) != 1:
+        raise ValueError(f"mismatched limb widths in one cluster: "
+                         f"{sorted(widths)} (rows_sig must match)")
+    return widths.pop()
+
+
+def _rows_cluster(items, device, sizes):
+    """(device, per-row modulus with tenant t's n^2 on ``sizes[t]`` rows,
+    L16 of the width, tenant index per row)."""
+    L8 = _rows_cluster_width(items)
+    # the device as tensors report it (cuda:<index>), for the checks below
+    dev = torch.empty(0, device=resolve_device(device)).device
+    base = ops.rows_modulus([item[0].n2 for item in items], L8, dev)
+    tidx = torch.repeat_interleave(
+        torch.arange(len(items), device=dev),
+        torch.as_tensor(sizes, dtype=torch.int64, device=dev))
+    return dev, base, base.table.L16, tidx
+
+
+def _rows_limbs(x, L16: int, dev: torch.device) -> torch.Tensor:
+    """Ciphertexts as (B, L16) limbs on ``dev``: a CipherTensor's resident
+    limbs, a limb tensor, or ints packed once."""
+    if isinstance(x, CipherTensor):
+        x = x.limbs
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(bi.from_ints([int(v) for v in x], L16),
+                            device=dev)
+    if x.device != dev or x.ndim != 2 or x.shape[1] > L16:
+        raise ValueError(f"ciphertext rows {tuple(x.shape)} on {x.device} "
+                         f"do not fit ({L16}) limbs on {dev}")
+    return bi.fit(x.to(torch.int32), L16)
+
+
+def _key_exps(exps: list[int], tidx: torch.Tensor) -> torch.Tensor:
+    """One exponent per tenant, broadcast to its rows: (B, Le16) limbs."""
+    le = max(1, max(bi.n_limbs_for(e) for e in exps))
+    table = torch.as_tensor(bi.from_ints(exps, le), device=tidx.device)
+    return table[tidx]
+
+
+def enc_rows(items: Sequence, device=None) -> list[torch.Tensor]:
+    """Fused encryption: ``items = [(key, ms, rs), ...]`` -> per tenant a
+    (len(ms), L16) tensor of ciphertexts.
+
+    c = (1 + m*n) * r^n mod n^2 per row (g = n+1 form, exactly
+    ``paillier.encrypt_crt``); blinding factors ``rs`` are drawn by the
+    caller in each tenant's own rng order.
+    """
+    sizes = [len(ms) for _, ms, _ in items]
+    dev, base, L16, tidx = _rows_cluster(items, device, sizes)
+    rm = base.repeat(sizes)
+    gms = [(1 + int(m) * key.n) % key.n2 for key, ms, _ in items for m in ms]
+    rs = [int(r) for _, _, rs in items for r in rs]
+    rn = ops.modexp_rows(_rows_limbs(rs, L16, dev),
+                         _key_exps([key.n for key, _, _ in items], tidx), rm)
+    c = ops.mulmod_rows(_rows_limbs(gms, L16, dev), rn, rm)
+    return list(torch.split(c, sizes))
+
+
+def dec_rows(items: Sequence, device=None) -> list[list[int]]:
+    """Fused decryption: ``items = [(key, cs), ...]`` (ciphertexts as a
+    CipherTensor, limb tensor or ints) -> per tenant the plaintext ints.
+
+    m = L(c^lam mod n^2) * mu mod n (exactly ``paillier.decrypt_crt``).
+    """
+    sizes = [len(cs) for _, cs in items]
+    dev, base, L16, tidx = _rows_cluster(items, device, sizes)
+    cs = torch.cat([_rows_limbs(c, L16, dev) for _, c in items])
+    x = ops.modexp_rows(cs, _key_exps([key.lam for key, _ in items], tidx),
+                        base.repeat(sizes))
+    out, i = [], 0
+    xs = bi.to_ints(x)
+    for (key, _), n in zip(items, sizes):
+        out.append([(v - 1) // key.n * key.mu % key.n for v in xs[i:i + n]])
+        i += n
+    return out
+
+
+def add_rows(items: Sequence, device=None) -> list[torch.Tensor]:
+    """Fused ⊕: ``items = [(key, c1s, c2s), ...]`` -> per tenant the
+    (len(c1s), L16) tensor of (c1*c2) mod n^2."""
+    sizes = [len(c1) for _, c1, _ in items]
+    dev, base, L16, _ = _rows_cluster(items, device, sizes)
+    a = torch.cat([_rows_limbs(c1, L16, dev) for _, c1, _ in items])
+    b = torch.cat([_rows_limbs(c2, L16, dev) for _, _, c2 in items])
+    return list(torch.split(ops.mulmod_rows(a, b, base.repeat(sizes)),
+                            sizes))
+
+
+def _matvec_exps(blocks: list, dev: torch.device) -> torch.Tensor:
+    """Every tenant's (E, M, N) exponent block, flattened in order, as
+    (sum E M N, Le16) limbs sized to the largest exponent: int64 through
+    ``paillier_vec.int64_to_limbs``, wider ints packed on the host."""
+    flat = np.concatenate([np.asarray(K).reshape(-1) for K in blocks])
+    try:
+        k64 = flat.astype(np.int64)
+    except OverflowError:
+        k64 = None
+    if k64 is not None:
+        if k64.size and int(k64.min()) < 0:
+            raise ValueError("matvec_rows requires non-negative exponents")
+        top = int(k64.max()) if k64.size else 0
+        le = max(1, -(-top.bit_length() // bi.LIMB_BITS))
+        return pv.int64_to_limbs(torch.as_tensor(k64, device=dev), le)
+    ints = [int(v) for v in flat]
+    if min(ints) < 0:
+        raise ValueError("matvec_rows requires non-negative exponents")
+    le = max(bi.n_limbs_for(v) for v in ints)
+    return torch.as_tensor(bi.from_ints(ints, le), device=dev)
+
+
+def matvec_rows(items: Sequence, device=None) -> list[torch.Tensor]:
+    """Fused homomorphic matvec: ``items = [(key, Ks, cs_list), ...]``.
+
+    Per tenant, ``Ks`` is an (E, M, N) block of NON-NEGATIVE plaintext
+    exponents and ``cs_list`` holds E length-N ciphertext vectors
+    (CipherTensors, limb tensors or ints); the result is an (E, M, L16)
+    tensor: out[e, i] = prod_j cs[e][j]^K[e, i, j] mod n^2.  (M, N) must
+    match across the cluster — it is part of the coalescer's group shape;
+    callers route any negative exponent through the per-tenant path.
+
+    Each edge's N ciphertexts are broadcast to its M rows on the device
+    (as ``runtime.coalesce.c_matvec_many``), so the whole cluster is one
+    ``modexp_rows`` launch at n^2 over sum E M N rows, then one shared
+    log-depth ``prod_rows`` tree.
+    """
+    shapes = {tuple(np.shape(Ks))[1:] for _, Ks, _ in items}
+    if len(shapes) != 1 or any(np.ndim(Ks) != 3 for _, Ks, _ in items):
+        raise ValueError(f"matvec_rows: (M, N) blocks differ across the "
+                         f"cluster: {sorted(shapes)}")
+    M, N = shapes.pop()
+    Es = [int(np.shape(Ks)[0]) for _, Ks, _ in items]
+    dev, base, L16, _ = _rows_cluster(items, device, [1] * len(items))
+    exps = _matvec_exps([Ks for _, Ks, _ in items], dev)
+    bases = torch.empty((sum(Es) * M * N, L16), dtype=torch.int32,
+                        device=dev)
+    off = 0
+    for (_, _, cs_list), E in zip(items, Es):
+        if len(cs_list) != E or any(len(c) != N for c in cs_list):
+            raise ValueError(f"matvec_rows: {len(cs_list)} ciphertext "
+                             f"vectors for E={E}, each of N={N}")
+        if E:
+            cs = torch.stack([_rows_limbs(c, L16, dev) for c in cs_list])
+            bases[off:off + E * M * N].view(E, M, N, L16).copy_(
+                cs[:, None].expand(E, M, N, L16))
+        off += E * M * N
+    pw = ops.modexp_rows(bases, exps,
+                         base.repeat([E * M * N for E in Es]))
+    out = ops.prod_rows(pw.reshape(-1, N, L16),
+                        base.repeat([E * M for E in Es]))
+    return [o.reshape(E, M, L16)
+            for o, E in zip(torch.split(out, [E * M for E in Es]), Es)]

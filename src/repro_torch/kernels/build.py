@@ -12,7 +12,7 @@ this module imports on machines without a card or a CUDA toolkit.
 
 Launch counts: each kernel wrapper calls :func:`count_launch` where it
 launches its kernel, and nowhere else: one more in ``LAUNCHES[body]`` (the
-keys are the seven kernel bodies of ``geometry.BODIES``) and in
+keys are the kernel bodies of ``geometry.BODIES``) and in
 ``SHAPE_LAUNCHES[(body, B, k)]`` (batch and width in 32-bit words).
 """
 from __future__ import annotations
@@ -42,14 +42,22 @@ _P, _I, _U, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
 _GEOM = (_I, _I, _I, _I, _I)
 #: one modulus of a modexp_fixed launch: windows, m, r1 or mu, r2, mp
 _HALF = (_P, _P, _P, _P, _U)
-#: kernel name -> (exported C function, its argument types)
+#: the kernel sources, ``csrc/<name>.cu``: one library each
+SOURCES = ("mulmod", "modexp", "modexp_fixed")
+#: launcher name -> (its source, exported C function, argument types); the
+#: ``*_rows`` launchers take per-row moduli (tables and a row index)
 KERNELS = {
-    "mulmod": ("mulmod_launch",
+    "mulmod": ("mulmod", "mulmod_launch",
                (_P, _L, _P, _L, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P)),
-    "modexp": ("modexp_launch",
+    "mulmod_rows": ("mulmod", "mulmod_rows_launch",
+                    (_P, _L, _P, _L, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
+                     _I, _P)),
+    "modexp": ("modexp", "modexp_launch",
                (_P, _P, _P, _I, _I, _I, _P, _P, _P, _U, _I, _I, _I, *_GEOM,
                 _P)),
-    "modexp_fixed": ("modexp_fixed_launch",
+    "modexp_rows": ("modexp", "modexp_rows_launch",
+                    (_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I, *_GEOM, _P)),
+    "modexp_fixed": ("modexp_fixed", "modexp_fixed_launch",
                      (_P, _P, _I, _I, _I, _I, *_HALF, *_HALF, _I, _I, *_GEOM,
                       _P)),
 }
@@ -85,7 +93,8 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Cache path of kernel ``name``: a hash of the flags and sources
+    """Cache path of the library of source ``name``: a hash of the flags
+    and sources
     (``-Xptxas -v`` changes only the compiler's report, not the code)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
@@ -96,17 +105,17 @@ def library_path(name: str) -> Path:
 
 def build_all(ptxas_verbose: bool = False,
               rebuild: bool = False) -> dict[str, str]:
-    """Compile every kernel whose library is missing (every kernel with
+    """Compile every source whose library is missing (every source with
     ``rebuild``), in parallel.
 
-    Returns each compiled kernel's compiler output (with
+    Returns each compiled source's compiler output (with
     ``ptxas_verbose``, the registers, stack and spills per instantiation);
     raises with the output of every ``nvcc`` that failed.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
-    for name in KERNELS:
+    for name in SOURCES:
         out = library_path(name)
         if out.exists() and not rebuild:
             continue
@@ -135,7 +144,8 @@ def build_all(ptxas_verbose: bool = False,
 
 
 def launcher(name: str):
-    """The C launch function of kernel ``name``, building it if needed."""
+    """The C launch function ``name`` (a key of :data:`KERNELS`),
+    building the libraries if needed."""
     fn = _FUNCS.get(name)
     if fn is not None:
         return fn
@@ -146,8 +156,10 @@ def launcher(name: str):
             from ..obs.metrics import record_profile
             record_profile("kernel_build", kernels=sorted(built),
                            seconds=time.perf_counter() - t0)
-            for kname, (sym, argtypes) in KERNELS.items():
-                fn = getattr(ctypes.CDLL(str(library_path(kname))), sym)
+            libs = {src: ctypes.CDLL(str(library_path(src)))
+                    for src in SOURCES}
+            for kname, (src, sym, argtypes) in KERNELS.items():
+                fn = getattr(libs[src], sym)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
                 _FUNCS[kname] = fn
@@ -161,6 +173,31 @@ def require_rows(name: str, x, rows: int, cols: int) -> None:
         raise ValueError(f"{name}: expected a CUDA tensor of shape "
                          f"({rows}, {cols}), got {tuple(x.shape)} on "
                          f"{x.device}")
+
+
+def require_index(name: str, rm, rows: int, device) -> "torch.Tensor":
+    """The row index of a :class:`~repro_torch.kernels.common.RowsModulus`
+    as the ``*_rows`` kernels read it: (rows,) contiguous int32 on
+    ``device``, every entry a row of its table (one synchronizing check),
+    and the table's kernel tensors on the same device.  Raises otherwise:
+    the kernels read table rows at these indices unchecked."""
+    import torch
+    midx, dm = rm.midx, rm.table
+    if midx.dtype != torch.int32 or tuple(midx.shape) != (rows,) \
+            or midx.device != device or not midx.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous ({rows},) int32 "
+                         f"row index on {device}, got {midx.dtype} "
+                         f"{tuple(midx.shape)} on {midx.device}")
+    T = len(rm.moduli)
+    W = 2 * dm.L32
+    if tuple(dm.mw.shape) != (T, W) or tuple(dm.muw.shape) != (T, W + 2) \
+            or dm.mw.device != device or dm.muw.device != device:
+        raise ValueError(f"{name}: modulus table of {T} rows does not match "
+                         f"its kernel tensors {tuple(dm.mw.shape)}, "
+                         f"{tuple(dm.muw.shape)} on {dm.mw.device}")
+    if rows and not 0 <= int(midx.min()) <= int(midx.max()) < T:
+        raise ValueError(f"{name}: row index outside the table's {T} rows")
+    return midx
 
 
 def check(rc: int, name: str) -> None:

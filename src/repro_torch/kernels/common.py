@@ -142,3 +142,41 @@ def barrett_ladder(ladder, base: torch.Tensor, arg,
     base_r = bi._barrett(base, dm.m16, dm.mu16)
     return ladder(lambda a, b: barrett_mulmod(a, b, dm), one_like(base_r),
                   base_r, arg).to(torch.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class RowsModulus:
+    """Per-row moduli of one launch: a table of T moduli of one width on
+    one device, and each row's index into it (the serving path's
+    cross-tenant launches, one tenant key per row).
+
+    ``table`` holds the Barrett material of :class:`DeviceModulus` with a
+    leading T axis: ``m16`` (T, L16), ``mu16`` (T, L16+1) for the plain
+    versions, ``mw`` (T, W), ``muw`` (T, W+2) for the kernels; it has no
+    Montgomery material.  ``midx`` is (B,) int32, every entry in [0, T);
+    ``moduli`` are the T moduli as ints.
+    """
+    table: DeviceModulus
+    midx: torch.Tensor
+    moduli: tuple
+
+    @property
+    def B(self) -> int:
+        return int(self.midx.shape[0])
+
+    def repeat(self, repeats) -> "RowsModulus":
+        """Each row ``repeats`` times in a row (an int, or one count per
+        row), as ``torch.repeat_interleave``: the same table."""
+        if not isinstance(repeats, int):
+            repeats = torch.as_tensor(repeats, dtype=torch.int64,
+                                      device=self.midx.device)
+        return RowsModulus(self.table, torch.repeat_interleave(
+            self.midx, repeats), self.moduli)
+
+    def per_row(self) -> DeviceModulus:
+        """Row i's modulus in row i of ``m16`` and ``mu16`` (B rows): the
+        plain versions' Barrett broadcasts over them.  ``mw``/``muw`` stay
+        the table's."""
+        t = self.table
+        idx = self.midx.long()
+        return dataclasses.replace(t, m16=t.m16[idx], mu16=t.mu16[idx])

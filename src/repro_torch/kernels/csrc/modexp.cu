@@ -43,17 +43,15 @@
 
 using namespace limbs;
 
+// One group's element e: out row e = base row e ^ exp row e mod m, the
+// field given by m16, aux16, r2_16 and mp (GroupField::enter); tab is the
+// block's dynamic shared memory (the win4 table).
 template <int TPI, int NW, bool WIN4, bool MONT>
-__global__ void modexp_kernel(const int32_t* __restrict__ base,
-                              const int32_t* __restrict__ exp,
-                              int32_t* __restrict__ out, int B, int l16,
-                              int le16, const int32_t* __restrict__ m16,
-                              const int32_t* __restrict__ aux16,
-                              const int32_t* __restrict__ r2_16, u32 mp,
-                              int k) {
-  extern __shared__ u32 tab[];  // WIN4: 16 entries x NW words x blockDim
-  const int e = (int)((blockIdx.x * blockDim.x + threadIdx.x) / TPI);
-  const bool live = e < B;
+__device__ __forceinline__ void modexp_element(
+    const int32_t* __restrict__ base, const int32_t* __restrict__ exp,
+    int32_t* __restrict__ out, int e, bool live, int l16, int le16,
+    const int32_t* __restrict__ m16, const int32_t* __restrict__ aux16,
+    const int32_t* __restrict__ r2_16, u32 mp, int k, u32* tab) {
   const int row = live ? e : 0;
   GroupField<TPI, NW, MONT> f;
   u32 b[NW], res[NW], x[NW];
@@ -92,14 +90,70 @@ __global__ void modexp_kernel(const int32_t* __restrict__ base,
   if (live) group_store<TPI, NW>(res, l16, out + (size_t)e * l16);
 }
 
+template <int TPI, int NW, bool WIN4, bool MONT>
+__global__ void modexp_kernel(const int32_t* __restrict__ base,
+                              const int32_t* __restrict__ exp,
+                              int32_t* __restrict__ out, int B, int l16,
+                              int le16, const int32_t* __restrict__ m16,
+                              const int32_t* __restrict__ aux16,
+                              const int32_t* __restrict__ r2_16, u32 mp,
+                              int k) {
+  extern __shared__ u32 tab[];  // WIN4: 16 entries x NW words x blockDim
+  const int e = (int)((blockIdx.x * blockDim.x + threadIdx.x) / TPI);
+  modexp_element<TPI, NW, WIN4, MONT>(base, exp, out, e, e < B, l16, le16,
+                                      m16, aux16, r2_16, mp, k, tab);
+}
+
+// Per-row moduli, Barrett only (the serving path's launches, one tenant
+// key per row): element e reduces mod row midx[e] of a table of T moduli
+// (m16: T rows of 2k limbs, mu16: T rows of 2(k+1) limbs).  Replaces the
+// reference's kernels/ops.py::modexp_rows (jitted common.modexp2d_win4
+// and modexp2d with per-row m and mu operands; not a Pallas kernel).
+// Barrett because the moduli are n^2 of the tenants' keys: a Montgomery
+// body would need each row's -m^{-1} and R^2 mod m as well, and the rows'
+// exponents (r^n's n, c^lam's lam, a matvec's plaintexts) are not reduced
+// into CRT halves.  The ladders are modexp_kernel's, constant-time alike;
+// a table row read by every element of its tenant stays in L2.
+template <int TPI, int NW, bool WIN4>
+__global__ void modexp_rows_kernel(const int32_t* __restrict__ base,
+                                   const int32_t* __restrict__ exp,
+                                   int32_t* __restrict__ out, int B,
+                                   int l16, int le16,
+                                   const int32_t* __restrict__ m16,
+                                   const int32_t* __restrict__ mu16,
+                                   const int32_t* __restrict__ midx, int k) {
+  extern __shared__ u32 tab[];  // WIN4: 16 entries x NW words x blockDim
+  const int e = (int)((blockIdx.x * blockDim.x + threadIdx.x) / TPI);
+  const bool live = e < B;
+  const size_t t = (size_t)midx[live ? e : 0];
+  const int32_t* m_row = m16 + t * 2 * k;
+  modexp_element<TPI, NW, WIN4, false>(base, exp, out, e, live, l16, le16,
+                                       m_row, mu16 + t * 2 * (k + 1), m_row,
+                                       0u, k, tab);
+}
+
 // (threads per element, words per thread) of every instantiation: each
 // body's group size at every width up to 128 words, and the other group
-// sizes timed against it at k = 64; the Barrett win4 body has a list of
-// its own.  Mirror repro_torch.kernels.geometry.SHAPES.
+// sizes timed against it at k = 64; the Barrett win4 body and the per-row
+// bodies have lists of their own.  Mirror
+// repro_torch.kernels.geometry.SHAPES.
 #define MODEXP_SHAPES(X) \
   X(8, 1) X(8, 2) X(8, 4) X(8, 8) X(8, 16) X(4, 16) X(16, 4)
 #define MODEXP_BARRETT_WIN4_SHAPES(X) \
   X(16, 1) X(16, 2) X(16, 4) X(16, 8) X(8, 8) X(4, 16)
+// the per-row bodies: their group size at every width (win4 16 threads,
+// binary 8, as the broadcast Barrett bodies)
+#define MODEXP_ROWS_WIN4_SHAPES(X) X(16, 1) X(16, 2) X(16, 4) X(16, 8)
+#define MODEXP_ROWS_BINARY_SHAPES(X) \
+  X(8, 1) X(8, 2) X(8, 4) X(8, 8) X(8, 16)
+
+// The widths and launch geometry both launchers take.
+static bool valid_launch(int B, int l16, int le16, int k, int tpi, int nw,
+                         int threads, int blocks) {
+  return k >= 1 && k <= MAXW && l16 <= 2 * k && le16 >= 1 && threads >= 32 &&
+         threads <= 1024 && threads % 32 == 0 && tpi * nw >= k &&
+         (long long)blocks * threads >= (long long)B * tpi;
+}
 
 template <int TPI, int NW, bool WIN4, bool MONT>
 static int launch(const int32_t* base, const int32_t* exp, int32_t* out,
@@ -129,9 +183,7 @@ extern "C" int modexp_launch(const int32_t* base, const int32_t* exp,
                              const int32_t* r2_16, unsigned int mp, int k,
                              int mont, int win4, int tpi, int nw, int threads,
                              int blocks, int smem, void* stream) {
-  if (k < 1 || k > MAXW || l16 > 2 * k || le16 < 1 || threads < 32 ||
-      threads > 1024 || threads % 32 != 0 || tpi * nw < k ||
-      (long long)blocks * threads < (long long)B * tpi)
+  if (!valid_launch(B, l16, le16, k, tpi, nw, threads, blocks))
     return (int)cudaErrorInvalidValue;
   if (B <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
@@ -152,5 +204,51 @@ extern "C" int modexp_launch(const int32_t* base, const int32_t* exp,
 #undef LAUNCH
 #undef LAUNCH_BARRETT_WIN4
 #undef BODY
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int TPI, int NW, bool WIN4>
+static int launch_rows(const int32_t* base, const int32_t* exp, int32_t* out,
+                       int B, int l16, int le16, const int32_t* m16,
+                       const int32_t* mu16, const int32_t* midx, int k,
+                       int threads, int blocks, int smem, cudaStream_t s) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        modexp_rows_kernel<TPI, NW, WIN4>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  modexp_rows_kernel<TPI, NW, WIN4><<<blocks, threads, smem, s>>>(
+      base, exp, out, B, l16, le16, m16, mu16, midx, k);
+  return (int)cudaGetLastError();
+}
+
+// modexp_launch's Barrett bodies with per-row moduli: m16 (T rows of 2k
+// limbs) and mu16 (T rows of 2(k+1) limbs) are tables, midx (B int32,
+// each in [0, T)) names each row's modulus.  The caller checks midx.
+extern "C" int modexp_rows_launch(const int32_t* base, const int32_t* exp,
+                                  int32_t* out, int B, int l16, int le16,
+                                  const int32_t* m16, const int32_t* mu16,
+                                  const int32_t* midx, int k, int win4,
+                                  int tpi, int nw, int threads, int blocks,
+                                  int smem, void* stream) {
+  if (!valid_launch(B, l16, le16, k, tpi, nw, threads, blocks))
+    return (int)cudaErrorInvalidValue;
+  if (B <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+#define ROWS(T, N, W)                                                     \
+  if (tpi == T && nw == N)                                               \
+    return launch_rows<T, N, W>(base, exp, out, B, l16, le16, m16, mu16, \
+                                midx, k, threads, blocks, smem, s);
+#define ROWS_WIN4(T, N) ROWS(T, N, true)
+#define ROWS_BINARY(T, N) ROWS(T, N, false)
+  if (win4) {
+    MODEXP_ROWS_WIN4_SHAPES(ROWS_WIN4)
+  } else {
+    MODEXP_ROWS_BINARY_SHAPES(ROWS_BINARY)
+  }
+#undef ROWS_BINARY
+#undef ROWS_WIN4
+#undef ROWS
   return (int)cudaErrorInvalidValue;
 }

@@ -33,14 +33,14 @@
 
 using namespace limbs;
 
+// One group's element e: out row e = (a row e * b row e) mod m, with m
+// and mu = floor(2^{64k}/m) given as 2k and 2(k+1) radix-2^16 limbs.
 template <int TPI, int NW>
-__global__ void mulmod_kernel(const int32_t* __restrict__ a, long long sa,
-                              const int32_t* __restrict__ b, long long sb,
-                              int32_t* __restrict__ out, int B, int l16,
-                              const int32_t* __restrict__ m16,
-                              const int32_t* __restrict__ mu16, int k) {
-  const int e = (int)((blockIdx.x * blockDim.x + threadIdx.x) / TPI);
-  const bool live = e < B;
+__device__ __forceinline__ void mulmod_element(
+    const int32_t* __restrict__ a, long long sa,
+    const int32_t* __restrict__ b, long long sb, int32_t* __restrict__ out,
+    int e, bool live, int l16, const int32_t* __restrict__ m16,
+    const int32_t* __restrict__ mu16, int k) {
   const long long row = live ? e : 0;
   u32 m[NW], mu[NW], x[NW], y[NW], muH;
   group_load<TPI, NW>(m16, 2 * k, k, true, m);
@@ -51,12 +51,55 @@ __global__ void mulmod_kernel(const int32_t* __restrict__ a, long long sa,
   if (live) group_store<TPI, NW>(x, l16, out + (size_t)e * l16);
 }
 
+template <int TPI, int NW>
+__global__ void mulmod_kernel(const int32_t* __restrict__ a, long long sa,
+                              const int32_t* __restrict__ b, long long sb,
+                              int32_t* __restrict__ out, int B, int l16,
+                              const int32_t* __restrict__ m16,
+                              const int32_t* __restrict__ mu16, int k) {
+  const int e = (int)((blockIdx.x * blockDim.x + threadIdx.x) / TPI);
+  mulmod_element<TPI, NW>(a, sa, b, sb, out, e, e < B, l16, m16, mu16, k);
+}
+
+// Per-row moduli (the serving path's launches, one tenant key per row):
+// element e reduces mod row midx[e] of a table of T moduli (m16: T rows
+// of 2k limbs, mu16: T rows of 2(k+1) limbs).  Replaces the reference's
+// kernels/ops.py::mulmod_rows (jitted common.mulmod2d with per-row m and
+// mu operands; not a Pallas kernel).  A table row read by every element
+// of its tenant stays in L2, where a materialized (B, 2k) modulus array
+// would be a second operand stream as wide as a and b.  Every thread of
+// a group reads the same midx[e]; groups past the batch edge read row 0.
+template <int TPI, int NW>
+__global__ void mulmod_rows_kernel(const int32_t* __restrict__ a,
+                                   long long sa,
+                                   const int32_t* __restrict__ b,
+                                   long long sb, int32_t* __restrict__ out,
+                                   int B, int l16,
+                                   const int32_t* __restrict__ m16,
+                                   const int32_t* __restrict__ mu16,
+                                   const int32_t* __restrict__ midx, int k) {
+  const int e = (int)((blockIdx.x * blockDim.x + threadIdx.x) / TPI);
+  const bool live = e < B;
+  const size_t t = (size_t)midx[live ? e : 0];
+  mulmod_element<TPI, NW>(a, sa, b, sb, out, e, live, l16,
+                          m16 + t * 2 * k, mu16 + t * 2 * (k + 1), k);
+}
+
 // (threads per element, words per thread) of every instantiation: each
-// timed group size at every width up to 128 words.  Mirrors
-// repro_torch.kernels.geometry.SHAPES["mulmod"].
+// timed group size at every width up to 128 words, for both kernels.
+// Mirrors repro_torch.kernels.geometry.SHAPES["mulmod"] and
+// SHAPES["mulmod_rows"].
 #define MULMOD_SHAPES(X)                                               \
   X(32, 1) X(32, 2) X(32, 4) X(16, 1) X(16, 2) X(16, 4) X(16, 8) X(8, 1) \
   X(8, 2) X(8, 4) X(8, 8) X(8, 16)
+
+// The widths, strides and launch geometry both launchers take.
+static bool valid_launch(int B, int l16, long long sa, long long sb, int k,
+                         int tpi, int nw, int threads, int blocks) {
+  return k >= 1 && k <= MAXW && l16 <= 2 * k && sa >= 0 && sb >= 0 &&
+         threads >= 32 && threads <= 1024 && threads % 32 == 0 &&
+         tpi * nw >= k && (long long)blocks * threads >= (long long)B * tpi;
+}
 
 // a, b: (B, l16) int32 radix-2^16 rows, row i at a + i * sa and b + i * sb
 // (sb = 0: one row b for every a); out: (B, l16) contiguous; m16: 2k
@@ -68,9 +111,7 @@ extern "C" int mulmod_launch(const int32_t* a, long long sa, const int32_t* b,
                              const int32_t* m16, const int32_t* mu16, int k,
                              int tpi, int nw, int threads, int blocks,
                              void* stream) {
-  if (k < 1 || k > MAXW || l16 > 2 * k || sa < 0 || sb < 0 ||
-      threads < 32 || threads > 1024 || threads % 32 != 0 || tpi * nw < k ||
-      (long long)blocks * threads < (long long)B * tpi)
+  if (!valid_launch(B, l16, sa, sb, k, tpi, nw, threads, blocks))
     return (int)cudaErrorInvalidValue;
   if (B <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
@@ -79,6 +120,31 @@ extern "C" int mulmod_launch(const int32_t* a, long long sa, const int32_t* b,
     mulmod_kernel<T, N><<<blocks, threads, 0, s>>>(a, sa, b, sb, out, \
                                                    B, l16, m16, mu16, k); \
     return (int)cudaGetLastError();                                 \
+  }
+  MULMOD_SHAPES(LAUNCH)
+#undef LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+// mulmod_launch with per-row moduli: m16 (T rows of 2k limbs) and mu16 (T
+// rows of 2(k+1) limbs) are tables, midx (B int32, each in [0, T)) names
+// each row's modulus.  The caller checks midx.
+extern "C" int mulmod_rows_launch(const int32_t* a, long long sa,
+                                  const int32_t* b, long long sb,
+                                  int32_t* out, int B, int l16,
+                                  const int32_t* m16, const int32_t* mu16,
+                                  const int32_t* midx, int k, int tpi,
+                                  int nw, int threads, int blocks,
+                                  void* stream) {
+  if (!valid_launch(B, l16, sa, sb, k, tpi, nw, threads, blocks))
+    return (int)cudaErrorInvalidValue;
+  if (B <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+#define LAUNCH(T, N)                                                    \
+  if (tpi == T && nw == N) {                                           \
+    mulmod_rows_kernel<T, N><<<blocks, threads, 0, s>>>(               \
+        a, sa, b, sb, out, B, l16, m16, mu16, midx, k);                \
+    return (int)cudaGetLastError();                                    \
   }
   MULMOD_SHAPES(LAUNCH)
 #undef LAUNCH

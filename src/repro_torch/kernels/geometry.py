@@ -11,6 +11,9 @@ ceil(k / TPI) words rounded up to a power of two, one of the
 instantiations that ``SHAPES`` lists (the ``*_SHAPES`` macros of the
 sources).  ``modexp_fixed`` runs one warp per block, so its small batches
 spread over the SMs; ``modexp`` and ``mulmod`` run 64-thread blocks.  The
+per-row-modulus bodies (``mulmod_rows``, ``modexp_rows[...]``: one modulus
+per row, the serving path's cross-tenant launches) take the geometry of
+their broadcast counterparts.  The
 win4 and fixed ladders keep a 16-entry power table per integer in dynamic
 shared memory.
 
@@ -30,7 +33,9 @@ MAX_THREADS = 1024
 BODIES = ("mulmod",
           "modexp[montgomery,win4]", "modexp[montgomery,binary]",
           "modexp[barrett,win4]", "modexp[barrett,binary]",
-          "modexp_fixed[montgomery]", "modexp_fixed[barrett]")
+          "modexp_fixed[montgomery]", "modexp_fixed[barrett]",
+          "mulmod_rows", "modexp_rows[barrett,win4]",
+          "modexp_rows[barrett,binary]")
 
 #: threads per integer of each body, at every width (mulmod: below
 #: MULMOD_FULL_BATCH).  modexp's bodies run 8 but modexp[barrett,win4]
@@ -43,7 +48,9 @@ BODIES = ("mulmod",
 TPI = {"mulmod": 32,
        "modexp[montgomery,win4]": 8, "modexp[montgomery,binary]": 8,
        "modexp[barrett,win4]": 16, "modexp[barrett,binary]": 8,
-       "modexp_fixed[montgomery]": 32, "modexp_fixed[barrett]": 32}
+       "modexp_fixed[montgomery]": 32, "modexp_fixed[barrett]": 32,
+       "mulmod_rows": 32, "modexp_rows[barrett,win4]": 16,
+       "modexp_rows[barrett,binary]": 8}
 #: From this batch on, mulmod runs MULMOD_FULL_WORDS words per lane (8 or
 #: 16 threads per integer at the main path's widths).  chip_smoke.py's
 #: sweep on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6), device
@@ -57,13 +64,15 @@ MULMOD_FULL_BATCH = 4096
 MULMOD_FULL_WORDS = 8
 #: (threads per integer, words per thread) of every instantiation of each
 #: body: TPI's group size at every width up to 128 words, and the other
-#: group sizes timed against it at k = 64 (mulmod: every group size at
-#: every width)
+#: group sizes timed against it at k = 64 (mulmod and mulmod_rows: every
+#: group size at every width; the per-row modexp bodies: their group size
+#: only)
 _MODEXP = ((8, 1), (8, 2), (8, 4), (8, 8), (8, 16), (4, 16), (16, 4))
 _MODEXP_FIXED = ((32, 1), (32, 2), (32, 4), (16, 4), (8, 8))
+_MULMOD = ((32, 1), (32, 2), (32, 4), (16, 1), (16, 2), (16, 4), (16, 8),
+           (8, 1), (8, 2), (8, 4), (8, 8), (8, 16))
 SHAPES = {
-    "mulmod": ((32, 1), (32, 2), (32, 4), (16, 1), (16, 2), (16, 4),
-               (16, 8), (8, 1), (8, 2), (8, 4), (8, 8), (8, 16)),
+    "mulmod": _MULMOD,
     "modexp[montgomery,win4]": _MODEXP,
     "modexp[montgomery,binary]": _MODEXP,
     "modexp[barrett,win4]": ((16, 1), (16, 2), (16, 4), (16, 8), (8, 8),
@@ -71,9 +80,13 @@ SHAPES = {
     "modexp[barrett,binary]": _MODEXP,
     "modexp_fixed[montgomery]": _MODEXP_FIXED,
     "modexp_fixed[barrett]": _MODEXP_FIXED,
+    "mulmod_rows": _MULMOD,
+    "modexp_rows[barrett,win4]": ((16, 1), (16, 2), (16, 4), (16, 8)),
+    "modexp_rows[barrett,binary]": ((8, 1), (8, 2), (8, 4), (8, 8), (8, 16)),
 }
 #: threads per block of each kernel
-BLOCK_THREADS = {"modexp": 64, "modexp_fixed": 32, "mulmod": 64}
+BLOCK_THREADS = {"modexp": 64, "modexp_fixed": 32, "mulmod": 64,
+                 "modexp_rows": 64, "mulmod_rows": 64}
 TABLE_ENTRIES = 16
 
 
@@ -92,12 +105,13 @@ class Geometry:
 
 def body_name(kernel: str, reduce_impl: str = "montgomery",
               method: str = "win4") -> str:
-    """The body a launch of ``kernel`` runs: ``mulmod``,
-    ``modexp[<reduce_impl>,<method>]`` or ``modexp_fixed[<reduce_impl>]``."""
-    if kernel == "mulmod":
+    """The body a launch of ``kernel`` runs: ``mulmod``, ``mulmod_rows``,
+    ``modexp[<reduce_impl>,<method>]``, ``modexp_rows[barrett,<method>]``
+    or ``modexp_fixed[<reduce_impl>]``."""
+    if kernel in ("mulmod", "mulmod_rows"):
         return kernel
-    if kernel == "modexp":
-        return f"modexp[{reduce_impl},{method}]"
+    if kernel in ("modexp", "modexp_rows"):
+        return f"{kernel}[{reduce_impl},{method}]"
     return f"modexp_fixed[{reduce_impl}]"
 
 
@@ -107,10 +121,10 @@ def _pow2_at_least(n: int) -> int:
 
 def group_size(body: str, B: int, k: int) -> int:
     """Threads per integer of ``body`` at batch B and width k:
-    :data:`TPI`'s, but for a ``mulmod`` batch that fills the card the size
-    that gives each lane :data:`MULMOD_FULL_WORDS` words (at least 8
-    threads, at most :data:`TPI`'s)."""
-    if body == "mulmod" and B >= MULMOD_FULL_BATCH:
+    :data:`TPI`'s, but for a ``mulmod`` or ``mulmod_rows`` batch that fills
+    the card the size that gives each lane :data:`MULMOD_FULL_WORDS` words
+    (at least 8 threads, at most :data:`TPI`'s)."""
+    if body in ("mulmod", "mulmod_rows") and B >= MULMOD_FULL_BATCH:
         return min(TPI[body],
                    max(8, _pow2_at_least(-(-k // MULMOD_FULL_WORDS))))
     return TPI[body]

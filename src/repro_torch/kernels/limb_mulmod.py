@@ -8,6 +8,12 @@ launches the kernel (or raises), a CPU tensor takes the plain version.
 
 Both are exact for any operands below 2^{16 L16}, not only reduced ones:
 ``paillier_vec._reduce_into`` multiplies full-width chunks by 1.
+
+``mulmod_rows`` (the reference's jitted ``ops.mulmod_rows``, not a
+Pallas kernel) takes one modulus per row, from a table
+(:class:`common.RowsModulus`): :func:`mulmod_rows_cuda` launches the
+``mulmod_rows_kernel`` of the same source, :func:`mulmod_rows_plain` is
+the same Barrett over the gathered per-row moduli.
 """
 from __future__ import annotations
 
@@ -56,6 +62,46 @@ def mulmod_cuda(a: torch.Tensor, b: torch.Tensor, dm: cm.DeviceModulus,
     build.check(rc, "mulmod")
     build.count_launch("mulmod", B, dm.L32)
     return out
+
+
+def mulmod_rows_plain(a: torch.Tensor, b: torch.Tensor,
+                      rm: cm.RowsModulus) -> torch.Tensor:
+    """(B, L16) x (B, L16) -> (B, L16) int32: (a*b) mod row i's modulus,
+    plain PyTorch."""
+    return mulmod_plain(a, b, rm.per_row())
+
+
+def mulmod_rows_cuda(a: torch.Tensor, b: torch.Tensor, rm: cm.RowsModulus,
+                     tpi: int | None = None) -> torch.Tensor:
+    """The ``mulmod_rows_kernel`` of ``csrc/mulmod.cu`` on CUDA tensors
+    (same contract as :func:`mulmod_rows_plain`; ``b`` may be a broadcast
+    row as for :func:`mulmod_cuda`)."""
+    B, dm = a.shape[0], rm.table
+    build.require_rows("mulmod_rows a", a, B, dm.L16)
+    build.require_rows("mulmod_rows b", b, B, dm.L16)
+    midx = build.require_index("mulmod_rows", rm, B, a.device)
+    (a, sa), (b, sb) = _row_stride(a), _row_stride(b)
+    out = torch.empty((B, dm.L16), dtype=torch.int32, device=a.device)
+    if B == 0:
+        return out
+    g = geometry.launch_geometry("mulmod_rows", B, dm.L32, tpi)
+    launch = build.launcher("mulmod_rows")
+    with torch.cuda.device(a.device):
+        rc = launch(a.data_ptr(), sa, b.data_ptr(), sb, out.data_ptr(), B,
+                    dm.L16, dm.mw.data_ptr(), dm.muw.data_ptr(),
+                    midx.data_ptr(), dm.L32, g.tpi, g.words, g.threads,
+                    g.blocks, torch.cuda.current_stream(a.device).cuda_stream)
+    build.check(rc, "mulmod_rows")
+    build.count_launch("mulmod_rows", B, dm.L32)
+    return out
+
+
+def mulmod_rows_limbs(a: torch.Tensor, b: torch.Tensor,
+                      rm: cm.RowsModulus) -> torch.Tensor:
+    """Kernel on a CUDA tensor, plain version on a CPU tensor."""
+    if a.device.type == "cuda":
+        return mulmod_rows_cuda(a, b, rm)
+    return mulmod_rows_plain(a, b, rm)
 
 
 def mulmod_limbs(a: torch.Tensor, b: torch.Tensor,

@@ -12,6 +12,13 @@ Port of ``repro.kernels.modexp``:
   (``csrc/modexp_fixed.cu``).  :func:`modexp_fixed_pair_cuda` runs both
   CRT halves of a Paillier exponentiation in one Montgomery launch.
 
+``modexp_rows`` (the reference's jitted ``ops.modexp_rows``, not a Pallas
+kernel) takes one modulus per row from a table
+(:class:`common.RowsModulus`), Barrett only: :func:`modexp_rows_cuda`
+launches the ``modexp_rows_kernel`` bodies of ``csrc/modexp.cu``,
+:func:`modexp_rows_plain` runs the Barrett ladders over the gathered
+per-row moduli.
+
 Every body runs a group of threads per big integer;
 ``geometry.launch_geometry`` sizes every launch.  Each
 ``*_limbs`` function picks by where the base lives: a CUDA tensor
@@ -78,6 +85,42 @@ def modexp_cuda(base: torch.Tensor, exp: torch.Tensor, dm: cm.DeviceModulus,
                     dm.L16, le16, *_field_args(dm, mont), dm.L32, int(mont),
                     int(method == "win4"), g.tpi, g.words, g.threads,
                     g.blocks, g.smem,
+                    torch.cuda.current_stream(base.device).cuda_stream)
+    build.check(rc, body)
+    build.count_launch(body, B, dm.L32)
+    return out
+
+
+def modexp_rows_plain(base: torch.Tensor, exp: torch.Tensor,
+                      rm: cm.RowsModulus, method: str) -> torch.Tensor:
+    """base (B, L16), exp (B, Le16) -> base^exp mod row i's modulus,
+    (B, L16), Barrett, plain PyTorch."""
+    return modexp_plain(base, exp, rm.per_row(), method, "barrett")
+
+
+def modexp_rows_cuda(base: torch.Tensor, exp: torch.Tensor,
+                     rm: cm.RowsModulus, method: str,
+                     tpi: int | None = None) -> torch.Tensor:
+    """The ``modexp_rows_kernel`` of ``csrc/modexp.cu`` on CUDA tensors
+    (same contract as :func:`modexp_rows_plain`)."""
+    base = base.to(torch.int32).contiguous()
+    exp = exp.to(device=base.device, dtype=torch.int32).contiguous()
+    dm = rm.table
+    B, le16 = base.shape[0], exp.shape[1]
+    build.require_rows("modexp_rows base", base, B, dm.L16)
+    build.require_rows("modexp_rows exp", exp, B, le16)
+    midx = build.require_index("modexp_rows", rm, B, base.device)
+    out = torch.empty((B, dm.L16), dtype=torch.int32, device=base.device)
+    if B == 0:
+        return out
+    body = geometry.body_name("modexp_rows", "barrett", method)
+    g = geometry.launch_geometry(body, B, dm.L32, tpi)
+    launch = build.launcher("modexp_rows")
+    with torch.cuda.device(base.device):
+        rc = launch(base.data_ptr(), exp.data_ptr(), out.data_ptr(), B,
+                    dm.L16, le16, dm.mw.data_ptr(), dm.muw.data_ptr(),
+                    midx.data_ptr(), dm.L32, int(method == "win4"), g.tpi,
+                    g.words, g.threads, g.blocks, g.smem,
                     torch.cuda.current_stream(base.device).cuda_stream)
     build.check(rc, body)
     build.count_launch(body, B, dm.L32)
@@ -164,6 +207,14 @@ def modexp_limbs(base: torch.Tensor, exp: torch.Tensor, dm: cm.DeviceModulus,
     if base.device.type == "cuda":
         return modexp_cuda(base, exp, dm, method, reduce_impl)
     return modexp_plain(base, exp, dm, method, reduce_impl)
+
+
+def modexp_rows_limbs(base: torch.Tensor, exp: torch.Tensor,
+                      rm: cm.RowsModulus, method: str) -> torch.Tensor:
+    """Kernel on a CUDA tensor, plain version on a CPU tensor."""
+    if base.device.type == "cuda":
+        return modexp_rows_cuda(base, exp, rm, method)
+    return modexp_rows_plain(base, exp, rm, method)
 
 
 def modexp_fixed_limbs(base: torch.Tensor, windows: Sequence[int],

@@ -14,6 +14,14 @@ Reduction (``REPRO_REDUCE_IMPL``, read per call, the reference's meaning):
 Barrett.  ``REPRO_MODEXP_METHOD`` (read at import, as in the reference)
 picks the per-element ladder: ``win4`` (default) or ``binary``.
 
+The rows layer (:func:`rows_modulus`, :func:`mulmod_rows`,
+:func:`modexp_rows`, :func:`prod_rows`) takes one modulus per row, each a
+tenant's n^2 in the serving path's cross-tenant launches.  Its public
+layout is the port's (B, L16) radix-2^16 int32 on the device, not the
+reference's radix-256 numpy rows; the reference pads batches and
+exponent widths to powers of two only to bound JAX retraces, and the
+port does not.
+
 Operands are never cut to the modulus width: an operand wider than L16
 limbs raises.  (The reference cuts operands to the modulus' byte length,
 ``ops.py:126-130``, which loses the top byte of a full-width operand when
@@ -22,6 +30,7 @@ the modulus has an odd byte length.)
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -31,9 +40,10 @@ from .. import resolve_device
 from ..core import bigint as bi
 from . import common as cm
 from . import montgomery as mg
-from .limb_mulmod import mulmod_limbs
+from .limb_mulmod import mulmod_limbs, mulmod_rows_limbs
 from .modexp import (METHODS, REDUCE_IMPLS, modexp_fixed_limbs,
-                     modexp_fixed_pair_limbs, modexp_limbs)
+                     modexp_fixed_pair_limbs, modexp_limbs,
+                     modexp_rows_limbs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -249,3 +259,124 @@ def modexp_fixed_pair(bases, exps, packs, device=None,
     return modexp_fixed_pair_limbs(
         (bp, bq), tuple(mg.exp_windows(e) for e in exps),
         tuple(p.on(bp.device) for p in packs), impls)
+
+
+# ---------------------------------------------------------------------------
+# Rows layer: one modulus per row (the serving path's cross-tenant launches)
+# ---------------------------------------------------------------------------
+
+def _check_row_modulus(m: int, L8: int) -> None:
+    if m >> (8 * L8):
+        raise OverflowError(f"modulus of {(m.bit_length() + 7) // 8} bytes "
+                            f"is wider than {L8}")
+    if (m >> (8 * (L8 - 1))) == 0:
+        raise ValueError(
+            f"modulus does not fill {L8} radix-256 limbs (Barrett needs "
+            "the top limb populated); cluster by exact byte length")
+
+
+@functools.lru_cache(maxsize=64)
+def _rows_table(moduli: tuple, L8: int, device: str) -> cm.DeviceModulus:
+    """The Barrett material of ``moduli`` (all of exactly L8 bytes) with a
+    leading table axis, on ``device``."""
+    L16 = -(-L8 // 2)
+    L32 = -(-L16 // 2)
+    W = 2 * L32
+
+    def t(rows):
+        return torch.as_tensor(np.stack(rows), device=device)
+
+    return cm.DeviceModulus(
+        L16=L16, L32=L32,
+        m16=t([bi.from_int(m, L16) for m in moduli]),
+        mu16=t([bi.barrett_mu(m, L16) for m in moduli]),
+        mw=t([bi.from_int(m, W) for m in moduli]),
+        muw=t([bi.from_int((1 << (64 * L32)) // m, W + 2) for m in moduli]),
+        mp=None, minv=None, r1=None, r2=None)
+
+
+def rows_modulus(ms, L8: int, device=None) -> cm.RowsModulus:
+    """Per-row Barrett material: row i reduces mod ``ms[i]``.
+
+    Every modulus must have EXACT byte length ``L8`` (same-width
+    clustering is the caller's, the coalescer's, fusion invariant): one
+    with a zero top byte raises ``ValueError``, a wider one
+    ``OverflowError``, as in the reference.  The distinct moduli form the
+    table (first appearance order); ``device`` defaults to the card.
+    """
+    dev = resolve_device(device)
+    index: dict[int, int] = {}
+    midx = []
+    for m in ms:
+        m = int(m)
+        t = index.get(m)
+        if t is None:
+            _check_row_modulus(m, L8)
+            t = index[m] = len(index)
+        midx.append(t)
+    moduli = tuple(index)
+    if not moduli:
+        raise ValueError("rows_modulus needs at least one row")
+    return cm.RowsModulus(_rows_table(moduli, L8, str(dev)),
+                          torch.tensor(midx, dtype=torch.int32, device=dev),
+                          moduli)
+
+
+def _rows_operand(x, rm: cm.RowsModulus, name: str) -> torch.Tensor:
+    """A (B, <=L16) limb tensor on the table's device, B = the rows."""
+    L16 = rm.table.L16
+    if not isinstance(x, torch.Tensor) or x.ndim != 2 \
+            or x.shape[0] != rm.B or x.shape[1] > L16:
+        raise ValueError(f"{name}: expected a ({rm.B}, <={L16}) limb tensor, "
+                         f"got {getattr(x, 'shape', type(x))}")
+    return _same_device(bi.fit(x, L16), rm.midx)
+
+
+def mulmod_rows(a: torch.Tensor, b: torch.Tensor,
+                rm: cm.RowsModulus) -> torch.Tensor:
+    """(a*b) mod m row-wise, m = row i's modulus: (B, L16) x (B, L16) ->
+    (B, L16)."""
+    a = _rows_operand(a, rm, "mulmod_rows a")
+    b = _rows_operand(b, rm, "mulmod_rows b")
+    if rm.B == 0:
+        return torch.zeros_like(a)
+    return mulmod_rows_limbs(a, b, rm)
+
+
+def modexp_rows(base: torch.Tensor, exp: torch.Tensor, rm: cm.RowsModulus,
+                method: str | None = None) -> torch.Tensor:
+    """base^exp mod m row-wise, per-row moduli AND exponents: base
+    (B, L16), exp (B, Le16) radix-2^16 -> (B, L16); Barrett, the ladder
+    by ``method`` ("win4" default, or "binary")."""
+    method = method or MODEXP_METHOD
+    base = _rows_operand(base, rm, "modexp_rows base")
+    if not isinstance(exp, torch.Tensor) or exp.ndim != 2 \
+            or exp.shape[0] != rm.B:
+        raise ValueError(f"modexp_rows exp: expected ({rm.B}, Le16), got "
+                         f"{getattr(exp, 'shape', type(exp))}")
+    _validate_method(method, exp.shape[1] * bi.LIMB_BITS)
+    if rm.B == 0:
+        return torch.zeros_like(base)
+    return modexp_rows_limbs(base, _same_device(exp, base), rm, method)
+
+
+def prod_rows(x: torch.Tensor, rm: cm.RowsModulus) -> torch.Tensor:
+    """Row-wise modular product over axis 1: (R, N, L16) -> (R, L16), row
+    r mod its modulus.  A log-depth tree of :func:`mulmod_rows` launches
+    (element j times element j + N/2), the row index repeated for each
+    level's rows; exact ring products make the order immaterial."""
+    R, n, L = x.shape
+    if R != rm.B or n < 1:
+        raise ValueError(f"prod_rows: ({R}, {n}, {L}) for {rm.B} moduli")
+    cur = x
+    while n > 1:
+        h = n // 2
+        prod = mulmod_rows(cur[:, :h].reshape(R * h, L),
+                           cur[:, h:2 * h].reshape(R * h, L),
+                           rm.repeat(h)).reshape(R, h, L)
+        if n % 2:
+            cur = torch.cat([prod, cur[:, n - 1:n]], dim=1)
+            n = h + 1
+        else:
+            cur, n = prod, h
+    return cur[:, 0]

@@ -1,6 +1,7 @@
 """Crypto-op batching queue — one kernel launch per tick, not per edge.
 
-Port of the single-tenant part of ``repro.runtime.coalesce``.  Actors
+Port of ``repro.runtime.coalesce``: the single-tenant queue, and below it
+the serving engine's cross-tenant layer.  Actors
 never call the cipher box directly: they ``submit`` ops to this queue with
 a callback.  Submissions accumulate until the next tick boundary
 (``tick_s`` of virtual time), then :meth:`CoalesceQueue.flush` groups them
@@ -53,6 +54,7 @@ import torch
 
 from ..core import cipher_tensor as ct_mod
 from ..core import paillier_batch as pbatch
+from ..core import bigint as bi
 from ..core import paillier_vec as pv
 from ..core.cipher_tensor import CipherTensor
 from ..kernels import ops
@@ -212,8 +214,14 @@ class CoalesceQueue:
         self._flush_posted = False
         self._horizon_posted = False
         self._win += 1
-        # one flush's groups in deterministic repr-sorted order; callbacks
-        # may queue follow-up ops for the next tick
+        self._dispatch_groups(groups)
+        # callbacks may have queued follow-up ops for the next tick
+
+    def _dispatch_groups(self, groups: dict) -> None:
+        """Execute one flush's groups (deterministic repr-sorted order).
+
+        The serving engine's :class:`TenantQueue` overrides this to hand
+        the groups to a shared cross-tenant collector instead."""
         for (op, shape), entries in sorted(groups.items(),
                                            key=lambda kv: repr(kv[0])):
             self._exec_group(op, shape, entries)
@@ -344,16 +352,42 @@ class CoalesceQueue:
         return [out[i] for i in range(B)]
 
 
+# ---------------------------------------------------------------------------
+# Cross-tenant coalescing (the serving engine's shared launch queue).
+#
+# Every tenant keeps its OWN TenantQueue — own box, counter, tracer — so
+# solo semantics (group sort order, phase restore, telemetry) are kept;
+# but instead of executing its flush locally, each queue hands its groups
+# to one shared CrossTenantCoalescer.  The collector runs once per tick (a
+# same-timestamp event posted during the first tenant flush — the
+# scheduler's FIFO seq runs it after every tenant's flush at that tick),
+# clusters groups by (op, shape, fuse_sig), and executes each cluster as
+# ONE multi-key rows launch (``paillier_batch.enc_rows``/...): per-tenant
+# moduli ride as a per-row table index, so tenants with DIFFERENT keys
+# share the launch.
+#
+# Bit-transparency: the collector replays each tenant box's telemetry
+# (size-based counter bumps under the entry phase) and blinding-factor
+# draws (tenant rng, solo order) around the pure rows call, and demuxes
+# results into exactly the representation the solo box would have
+# returned (a limb-resident CipherTensor vs an int list vs an object
+# ndarray, per the box's own batch/batch_min rules).  Groups with no
+# fusion signature — plain, vec, adaptive boxes, non-batch gold matvec,
+# negative matvec exponents — run through the tenant's own
+# ``_exec_group``, i.e. literally the solo code path.
+# ---------------------------------------------------------------------------
+
+from ..core import paillier as gold  # noqa: E402  (serving layer below)
+
 ROWS_OPS = ("enc", "dec", "add", "matvec")
 
 
 def fuse_sig(box, op: str):
-    """Cross-tenant fusion signature for one tenant's (box, op), as the
-    reference's serving layer computes it.
+    """Cross-tenant fusion signature for one tenant's (box, op).
 
     Ops fuse across tenants iff signatures match: same op kind and same
-    exact byte length of n^2 (the reference's ``paillier_batch.rows_sig``).
-    ``None`` means "never fuse — run the solo path"."""
+    exact byte length of n^2 (``paillier_batch.rows_sig``).  ``None``
+    means "never fuse — run the solo path"."""
     if op not in ROWS_OPS or getattr(box, "name", "") != "gold":
         return None
     key = box.key
@@ -361,4 +395,204 @@ def fuse_sig(box, op: str):
         return None
     if op == "matvec" and not getattr(box, "batch", False):
         return None
-    return ("pail", (key.n2.bit_length() + 7) // 8)
+    return pbatch.rows_sig(key)
+
+
+class TenantQueue(CoalesceQueue):
+    """Per-tenant CoalesceQueue that defers execution to the shared
+    cross-tenant collector (solo behaviour without one)."""
+
+    def __init__(self, *args, tenant=None, collector=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.tenant = tenant
+        self.collector = collector
+        if collector is not None:
+            collector.register(self)
+
+    def _dispatch_groups(self, groups: dict) -> None:
+        if self.collector is None:
+            super()._dispatch_groups(groups)
+            return
+        self.collector.collect(self, groups)
+
+
+class CrossTenantCoalescer:
+    """Shared launch queue: clusters all tenants' same-tick groups by
+    (op, shape, fuse_sig) and executes each cluster as one launch."""
+
+    def __init__(self, sched: Scheduler,
+                 tracer: "trace_mod.Tracer | trace_mod.NullTracer" = trace_mod.NULL,
+                 max_log: int = 4096):
+        self.sched = sched
+        self.tracer = tracer
+        self.max_log = max_log
+        self._pending: list[tuple] = []   # (tq, op, shape, entries)
+        self._posted = False
+        self.queues: list[TenantQueue] = []
+        self.total_launches = 0    # every launch the collector executed
+        self.rows_launches = 0     # launches through the multi-key rows path
+        self.fused_launches = 0    # rows launches spanning >= 2 tenants
+        self.fused_ops = 0         # ops riding those cross-tenant launches
+        self.fused_log: list[dict] = []
+        self.fused_log_dropped = 0
+
+    def register(self, tq: TenantQueue) -> None:
+        self.queues.append(tq)
+
+    # -- collection ------------------------------------------------------
+    def collect(self, tq: TenantQueue, groups: dict) -> None:
+        # keep each tenant's solo group order (repr-sorted) so its
+        # callbacks and rng draws replay in the solo sequence
+        for (op, shape), entries in sorted(groups.items(),
+                                           key=lambda kv: repr(kv[0])):
+            self._pending.append((tq, op, shape, entries))
+        if not self._posted:
+            self._posted = True
+            # same-timestamp event: runs after every tenant flush already
+            # queued at this tick (monotonic event seq), so one cluster
+            # pass sees the whole tick's ops
+            self.sched.at(self.sched.now, self._execute, label="serve.fuse")
+
+    # -- execution -------------------------------------------------------
+    def _execute(self) -> None:
+        self._posted = False
+        pending, self._pending = self._pending, []
+        clusters: dict[tuple, list] = {}
+        for tq, op, shape, entries in pending:
+            sig = fuse_sig(tq.box, op)
+            clusters.setdefault((op, shape, sig), []).append((tq, entries))
+        # sorted by repr: within one tenant, (op, shape, sig) order equals
+        # the solo flush's (op, shape) order — sig is a function of
+        # (box, op), so two same-tenant groups never differ only in sig
+        for (op, shape, sig), parts in sorted(clusters.items(),
+                                              key=lambda kv: repr(kv[0])):
+            if sig is None or not self._rows_ok(op, parts):
+                for tq, entries in parts:
+                    before = tq.launches
+                    tq._exec_group(op, shape, entries)
+                    self.total_launches += tq.launches - before
+                continue
+            self._exec_rows(op, shape, sig, parts)
+
+    @staticmethod
+    def _rows_ok(op: str, parts: list) -> bool:
+        if op != "matvec":
+            return True
+        # a negative exponent needs the host base inversion: solo path
+        return not any(bool((np.asarray(e.args[0]) < 0).any())
+                       for _, entries in parts for e in entries)
+
+    def _exec_rows(self, op: str, shape: tuple, sig: tuple,
+                   parts: list) -> None:
+        total = sum(len(es) for _, es in parts)
+        dev = parts[0][0].box.device
+        t0 = parts[0][0]._clock()
+        if op == "enc":
+            items = []
+            for tq, entries in parts:
+                box = tq.box
+                flat = [int(v) for e in entries
+                        for v in np.asarray(e.args[0]).reshape(-1)]
+                # blinding draws: tenant's own rng, solo (entry) order
+                rs = [gold.rand_r(box.key, box.rng) for _ in flat]
+                items.append((box.key, flat, rs))
+            outs = pbatch.enc_rows(items, device=dev)
+        elif op == "dec":
+            outs = pbatch.dec_rows(
+                [(tq.box.key, _cat([e.args[0] for e in entries]))
+                 for tq, entries in parts], device=dev)
+        elif op == "add":
+            outs = pbatch.add_rows(
+                [(tq.box.key, _cat([e.args[0] for e in entries]),
+                  _cat([e.args[1] for e in entries]))
+                 for tq, entries in parts], device=dev)
+        else:   # matvec
+            outs = pbatch.matvec_rows(
+                [(tq.box.key, np.stack([np.asarray(e.args[0])
+                                        for e in entries]),
+                  [e.args[1] for e in entries])
+                 for tq, entries in parts], device=dev)
+        wall_ms = (parts[0][0]._clock() - t0) * 1e3
+        for (tq, entries), out in zip(parts, outs):
+            self._demux(tq, op, shape, entries, out, wall_ms, total)
+        self.total_launches += 1
+        self.rows_launches += 1
+        if len(parts) > 1:
+            self.fused_launches += 1
+            self.fused_ops += total
+        if len(self.fused_log) < self.max_log:
+            self.fused_log.append({
+                "op": op, "shape": tuple(shape), "limb_bytes": sig[1],
+                "tenants": [tq.tenant for tq, _ in parts],
+                "widths": [len(es) for _, es in parts]})
+        else:
+            self.fused_log_dropped += 1
+        if self.tracer.enabled:
+            self.tracer.add(f"serve:launch:{op}", "serve", t=self.sched.now,
+                            wall_ms=wall_ms, op=op, shape=shape, width=total,
+                            tenants=len(parts), limb_bytes=sig[1])
+
+    def _demux(self, tq: TenantQueue, op: str, shape: tuple,
+               entries: list[_Entry], out, wall_ms: float,
+               total: int) -> None:
+        """Rebuild exactly the representation + telemetry the tenant's
+        solo box call would have produced, then fire the callbacks."""
+        box = tq.box
+
+        def cipher(limbs: torch.Tensor, resident: bool):
+            # the solo box's representation: a resident CipherTensor on
+            # its batched path, Python ints on its scalar loops
+            if resident:
+                return CipherTensor(box.batch_key(), limbs)
+            return bi.to_ints(limbs)
+
+        if tq.counter is not None:
+            tq.counter.phase = entries[0].phase
+        if op == "enc":
+            sizes = [int(np.asarray(e.args[0]).size) for e in entries]
+            if tq.counter is not None:
+                tq.counter.bump("enc", len(out))
+            big = cipher(out, box.batch and len(out) >= box.batch_min)
+            results = _split(big, sizes)
+        elif op == "dec":
+            sizes = [CoalesceQueue._size(e.args[0]) for e in entries]
+            if tq.counter is not None:
+                tq.counter.bump("dec", len(out))
+            results = _split(np.array(out, dtype=object), sizes)
+        elif op == "add":
+            sizes = [CoalesceQueue._size(e.args[0]) for e in entries]
+            if tq.counter is not None:
+                tq.counter.bump("mulmod", len(out))
+            all_ct = all(isinstance(e.args[0], CipherTensor)
+                         and isinstance(e.args[1], CipherTensor)
+                         for e in entries)
+            results = _split(cipher(out, box.batch and all_ct), sizes)
+        else:   # matvec — mirror _matvec_fuses + box.matvec rep rules
+            M, N = shape
+            E = len(entries)
+            if tq.counter is not None:
+                tq.counter.bump("modexp", E * M * N)
+                tq.counter.bump("mulmod", E * M * (N - 1))
+            if E * M * N >= box.batch_min:
+                ct_in = all(isinstance(e.args[1], CipherTensor)
+                            for e in entries)
+                results = [cipher(rows, ct_in) for rows in out]
+            else:
+                results = [cipher(rows, M * N >= box.batch_min
+                                  and isinstance(e.args[1], CipherTensor))
+                           for e, rows in zip(entries, out)]
+        tq.launches += 1
+        if total > 1:
+            tq.coalesced_ops += len(entries)
+        tq._observe_launch(op, shape, entries, wall_ms,
+                           fused=total > 1 or len(entries) > 1)
+        for e, res in zip(entries, results):
+            e.cb(res)
+
+    def metrics_section(self) -> dict:
+        """Engine-level fusion telemetry (stats["serve"] feed)."""
+        return {"launches": self.total_launches,
+                "rows_launches": self.rows_launches,
+                "fused_launches": self.fused_launches,
+                "fused_ops": self.fused_ops,
+                "fused_log_dropped": self.fused_log_dropped}

@@ -22,7 +22,13 @@ plain call per half.  Small protocol runs on the card (the gold arm, the
 vec arm, the collaborative mode, a consensus family through secure
 aggregation and a churned run) and small runs of the event-driven
 runtime (sync gold and vec, deadline gold) are held against the same
-runs on the CPU.  These tests need an NVIDIA card and skip
+runs on the CPU.  The serving path's per-row-modulus bodies
+(``mulmod_rows``, ``modexp_rows`` with both ladders) are held against
+their plain versions and Python ints at k = 8, 64 and 128 with three
+moduli per launch (one with a top byte of 1), ragged batches and
+2,048-bit exponents at n^2; the rows Paillier ops on the card against
+the CPU; and a small ``ProtocolEngine`` run on the card against its
+tenants' solo runs.  These tests need an NVIDIA card and skip
 without one; on the card run
 ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
@@ -467,3 +473,161 @@ def test_modexp_fixed_barrett_every_group_size(dev, tpi, kind):
     assert torch.equal(out, mx.modexp_fixed_plain(bt, windows, dm,
                                                   "barrett"))
     assert bi.to_ints(out) == [pow(x, e, m) for x in base]
+
+
+# ---------------------------------------------------------------------------
+# per-row-modulus kernels (the serving path's cross-tenant launches)
+# ---------------------------------------------------------------------------
+
+ROWS_WIDTHS = (8, 64, 128)
+ROWS_BODIES = ("modexp_rows[barrett,win4]", "modexp_rows[barrett,binary]")
+
+
+def _rows_moduli(k: int) -> list:
+    """Three moduli of exactly 4k bytes: random odd, random even, and one
+    whose top byte is 1 (Barrett's quotient estimate is loosest there)."""
+    rng = random.Random(k * 101)
+    odd = rng.getrandbits(32 * k) | (1 << (32 * k - 1)) | 1
+    top1 = (1 << (32 * k - 8)) | rng.getrandbits(32 * k - 8) | 1
+    return [odd, odd - 1, top1]
+
+
+def _rows_case(k: int, B: int, dev):
+    """A per-row modulus over B rows cycling through three moduli."""
+    ms = _rows_moduli(k)
+    per_row = [ms[i * i % 3] for i in range(B)]
+    return per_row, ops.rows_modulus(per_row, 4 * k, dev)
+
+
+def _rows_batches(body: str) -> tuple:
+    per_block = geometry.BLOCK_THREADS[body.split("[")[0]] \
+        // geometry.TPI[body]
+    return (1, 77, per_block + 1, 130)
+
+
+@pytest.mark.parametrize("k", ROWS_WIDTHS)
+@pytest.mark.parametrize("B", _rows_batches("mulmod_rows")
+                         + (geometry.MULMOD_FULL_BATCH + 3,))
+def test_mulmod_rows_matches_plain_and_ints(dev, k, B):
+    """Full-width operands (any value below 2^{16 L16}), three moduli per
+    launch, ragged batches and the batch from which smaller groups run."""
+    per_row, rm = _rows_case(k, B, dev)
+    rng = random.Random(k * 13 + B)
+    a, at = _rows(rng, B, rm.table.L16, dev)
+    b, bt = _rows(rng, B, rm.table.L16, dev)
+    before = build.LAUNCHES["mulmod_rows"]
+    out = lm.mulmod_rows_cuda(at, bt, rm)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["mulmod_rows"] == before + 1
+    assert torch.equal(out, lm.mulmod_rows_plain(at, bt, rm))
+    want = [(x * y) % m for x, y, m in zip(a, b, per_row)]
+    assert bi.to_ints(out) == want
+    # a broadcast b row, as the wrappers take it
+    out1 = lm.mulmod_rows_cuda(at, bt[:1].expand(B, -1), rm)
+    assert bi.to_ints(out1) == [(x * b[0]) % m for x, m in zip(a, per_row)]
+
+
+@pytest.mark.parametrize("k", ROWS_WIDTHS)
+@pytest.mark.parametrize("tpi", sorted({t for t, _ in
+                                        geometry.SHAPES["mulmod_rows"]}))
+def test_mulmod_rows_every_group_size(dev, k, tpi):
+    per_row, rm = _rows_case(k, 77, dev)
+    rng = random.Random(k + tpi)
+    a, at = _rows(rng, 77, rm.table.L16, dev)
+    b, bt = _rows(rng, 77, rm.table.L16, dev)
+    out = lm.mulmod_rows_cuda(at, bt, rm, tpi=tpi)
+    torch.cuda.synchronize()
+    assert bi.to_ints(out) == [(x * y) % m for x, y, m in zip(a, b, per_row)]
+
+
+@pytest.mark.parametrize("k", ROWS_WIDTHS)
+@pytest.mark.parametrize("body, B", [(body, B) for body in ROWS_BODIES
+                                     for B in _rows_batches(body)])
+def test_modexp_rows_matches_plain_and_ints(dev, k, body, B):
+    """Both ladders, three moduli per launch, per-row exponents 0, 1, one
+    whose 4-bit windows take all 16 values and random 64-bit ones."""
+    method = body.split(",")[1].rstrip("]")
+    per_row, rm = _rows_case(k, B, dev)
+    rng = random.Random(k * 17 + B)
+    base, bt = _rows(rng, B, rm.table.L16, dev)
+    exps, et = _rows(rng, B, 4, dev)
+    for i, e in enumerate((0, 1, ALL_WINDOWS)[:B]):
+        exps[i] = e
+        et[i] = torch.as_tensor(bi.from_ints([e], 4)[0], device=dev)
+    before = build.LAUNCHES[body]
+    out = mx.modexp_rows_cuda(bt, et, rm, method)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[body] == before + 1
+    assert torch.equal(out, mx.modexp_rows_plain(bt, et, rm, method))
+    assert bi.to_ints(out) == [pow(x, e, m)
+                               for x, e, m in zip(base, exps, per_row)]
+
+
+@pytest.mark.parametrize("method", ("win4", "binary"))
+def test_modexp_rows_long_exponents_at_n2(dev, method):
+    """2,048-bit exponents (r^n, c^lam) at k = 128, held against ints."""
+    per_row, rm = _rows_case(128, 5, dev)
+    rng = random.Random(5)
+    base, bt = _rows(rng, 5, rm.table.L16, dev)
+    exps, et = _rows(rng, 5, 128, dev)
+    out = ops.modexp_rows(bt, et, rm, method=method)
+    assert bi.to_ints(out) == [pow(x, e, m)
+                               for x, e, m in zip(base, exps, per_row)]
+
+
+def test_rows_paillier_ops_on_card_equal_cpu(dev):
+    """enc/dec/add/matvec rows over two 1,024-bit keys on the card give
+    the CPU's results, and decryption inverts encryption."""
+    from repro_torch.core import paillier as gold
+    from repro_torch.core import paillier_batch as pb
+    keys = [gold.keygen(1024, random.Random(s)) for s in (1, 2)]
+    rng = random.Random(0)
+    enc_items = [(k, [rng.getrandbits(60) for _ in range(n)],
+                  [gold.rand_r(k, rng) for _ in range(n)])
+                 for k, n in zip(keys, (9, 5))]
+    Ks = [np.array([[[rng.getrandbits(40) for _ in range(4)]
+                     for _ in range(3)] for _ in range(2)], dtype=object)
+          for _ in keys]
+    got = {}
+    for where in ("cuda", "cpu"):
+        cts = pb.enc_rows(enc_items, device=where)
+        got[where] = (
+            [bi.to_ints(c) for c in cts],
+            pb.dec_rows([(k, c) for k, c in zip(keys, cts)], device=where),
+            [bi.to_ints(c) for c in pb.add_rows(
+                [(k, c, c) for k, c in zip(keys, cts)], device=where)],
+            [bi.to_ints(c.reshape(-1, c.shape[-1])) for c in pb.matvec_rows(
+                [(k, K, [c[:4], c[1:5]]) for k, K, c in zip(keys, Ks, cts)],
+                device=where)])
+    assert got["cuda"] == got["cpu"]
+    assert got["cuda"][1] == [ms for _, ms, _ in enc_items]
+
+
+def test_serving_engine_on_card_equals_solo_runs(dev):
+    """Three gold tenants (two key widths) in one engine on the card: each
+    equals its solo runtime run on the card, and the fused launches went
+    through the per-row kernels."""
+    from repro_torch.runtime import runner
+    from repro_torch.serve.protocol_engine import ProtocolEngine
+    inst = make_lasso(24, 32, sparsity=0.1, noise=0.01, seed=1)
+    cfgs = {f"t{i}": protocol.ProtocolConfig(
+        K=4, lam=0.05, iters=2, seed=i, key_bits=bits,
+        spec=QuantSpec(1e6, -8.0, 8.0), cipher="gold", gold_batch=True)
+        for i, bits in enumerate((128, 128, 256))}
+    build.reset_launches()
+    eng = ProtocolEngine(admission="concurrent")
+    for tid, cfg in cfgs.items():
+        eng.admit(inst.A, inst.y, cfg, tid=tid)
+    res = eng.run()
+    assert eng.stats()["serve"]["fused_launches"] > 0
+    for body in ("mulmod_rows", "modexp_rows[barrett,win4]"):
+        assert build.LAUNCHES[body] > 0, build.LAUNCHES
+    for tid, cfg in cfgs.items():
+        rt, master, wl, mode = runner.build_runtime(inst.A, inst.y, cfg)
+        master.start()
+        rt.sched.run()
+        solo = runner.collect_result(rt, master, wl, mode)
+        assert res[tid].history.tobytes() == solo.history.tobytes(), tid
+        assert report_core(res[tid].stats) == report_core(solo.stats), tid
+        assert eng.tenants[tid].rt.box.rng.getstate() == \
+            rt.box.rng.getstate(), tid

@@ -364,7 +364,8 @@ def test_launch_geometry_covers_every_width(body):
             assert g.smem <= geometry.MAX_SMEM_BYTES
             assert g.blocks * g.per_block >= B > (g.blocks - 1) * g.per_block
             assert g.tpi == geometry.group_size(body, B, k)
-            if kernel == "mulmod" and B >= geometry.MULMOD_FULL_BATCH:
+            if kernel in ("mulmod", "mulmod_rows") \
+                    and B >= geometry.MULMOD_FULL_BATCH:
                 # the fewest threads (at least 8) that hold k words at 8
                 # words per lane
                 assert g.words <= 8 and (g.tpi == 8 or
@@ -392,6 +393,14 @@ def test_launch_geometry_covers_every_width(body):
     ("mulmod", 192, 128, (32, 4, 2, 96, 0)),
     ("mulmod", 18_432, 128, (16, 8, 4, 4608, 0)),
     ("mulmod", 36_864, 64, (8, 8, 8, 4608, 0)),
+    # the serving path's per-row bodies at n^2: four tenants' fused
+    # matvec and round encryptions, the product tree's top level and a
+    # round's sums
+    ("modexp_rows[barrett,win4]", 442_368, 128, (16, 8, 4, 110_592, 32768)),
+    ("modexp_rows[barrett,win4]", 4_608, 128, (16, 8, 4, 1152, 32768)),
+    ("modexp_rows[barrett,binary]", 4_608, 128, (8, 16, 8, 576, 0)),
+    ("mulmod_rows", 221_184, 128, (16, 8, 4, 55_296, 0)),
+    ("mulmod_rows", 2_304, 128, (32, 4, 2, 1152, 0)),
 ])
 def test_launch_geometry_main_path_shapes(body, B, k, want):
     """The main path's launches, one case per launch shape."""
@@ -456,12 +465,17 @@ def test_launch_geometry_rejects_blocks_over_the_limits(
 
 def test_body_names_are_the_launch_counter_keys():
     assert set(build.LAUNCHES) == set(geometry.BODIES)
-    names = {geometry.body_name("mulmod")}
+    names = {geometry.body_name("mulmod"), geometry.body_name("mulmod_rows")}
     for impl in ("montgomery", "barrett"):
         names.add(geometry.body_name("modexp_fixed", impl))
         for method in ("win4", "binary"):
             names.add(geometry.body_name("modexp", impl, method))
+    for method in ("win4", "binary"):     # the per-row bodies: Barrett only
+        names.add(geometry.body_name("modexp_rows", "barrett", method))
     assert names == set(geometry.BODIES)
+    # every launcher is exported by one of the three sources
+    assert {src for src, _, _ in build.KERNELS.values()} == \
+        set(build.SOURCES)
 
 
 # ---------------------------------------------------------------------------
