@@ -106,14 +106,36 @@ package, and:
     cache, ``python -m repro_torch.obs.report --json`` on the trace and
     ``python -m repro_torch.obs.sentinel --json`` on this run's ledger as
     subprocesses (the sentinel may report perf findings, exit 1; exit 2
-    or a correctness finding fails);
-12. prints the kernel table as one JSON line (each body's launches on the
+    or a correctness finding fails).  ``ops.prod_rows`` at S1's fused
+    matvec (2,304 rows of 192 factors at n^2 over four moduli) is timed
+    as a whole tree of ``mulmod_rows`` launches beside the sum of its
+    levels' bounds, and held against its plain version and Python ints;
+12. runs the LM serving stack (``repro_torch.models``, ``serve.engine``,
+    ``launch.serve``; plain PyTorch, bfloat16 matmuls on a weight copy
+    the engine casts once): L1, Yi-9B at its full configuration (48
+    layers, d_model 4,096, 8.83 B parameters), ``Engine.generate`` at
+    batch 4, prompt 16, 32 new tokens, a 2,048-token prefill at batch 1
+    (the flash path), prefill and decode against ``forward`` within
+    0.15 and the int8 cache's decode against the bf16 cache's within
+    0.25, with its parameter count, peak memory, prefill tokens/s,
+    decode ms per step and the step's kernels' time replayed as a CUDA
+    graph (its device time without the host between launches); L2, the other nine archs at full width (xLSTM,
+    SeamlessM4T and RecurrentGemma at full depth, the other six cut to 2
+    layers), each ``Engine.generate`` at batch 4, prompt 16, 16 new
+    tokens, prefill and decode against ``forward`` within 0.15 in
+    float32 (MoE with capacity E / top_k) and their bf16 gaps printed;
+    L3, each reduced config in float32 on the card equal to the CPU
+    token for token, logits within 1e-3 (TF32 off); L4, ``python -m
+    repro_torch.launch.serve --arch xlstm_125m --batch 4`` as a
+    subprocess;
+13. prints the kernel table as one JSON line (each body's launches on the
     main path — for the per-row bodies on S1 — on the Barrett arm and on
-    each path of steps 9, 10 and 11), then as its last line ``{"ok":
-    true, "device": {...}}``.
+    each path of steps 9, 10 and 11; the LM stack has no kernel of its
+    own), then as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
-result.  Exact integer work: the tolerance of every comparison is zero.
+result.  Exact integer work: the tolerance of every comparison is zero;
+the LM checks' tolerances are stated in step 12.
 """
 import contextlib
 import dataclasses
@@ -1603,6 +1625,61 @@ def time_rows_kernels(bi, ops, lm, mx, geometry, ptxas, dev):
     return out
 
 
+def tree_levels(n):
+    """The batch of each level of ``ops.prod_rows``'s tree over n
+    elements a row, per row (n/2 products, an odd one carried)."""
+    levels = []
+    while n > 1:
+        h = n // 2
+        levels.append(h)
+        n = h + (n % 2)
+    return levels
+
+
+def time_prod_rows(bi, ops, dev):
+    """``ops.prod_rows`` at S1's fused matvec: one row per (tenant, edge,
+    output) of the four tenants' n^2 (k = 128), each the product of its
+    NK factors, each tenant's rows under its own modulus.  The whole tree
+    of ``mulmod_rows`` launches timed by CUDA events, its bound the sum
+    of the levels' bounds, its first rows held against the plain version
+    (the same call on host tensors) and Python ints."""
+    rng = random.Random(SEED + 6)
+    T = len(SERVE_SEEDS)
+    ms = [rng.getrandbits(4096) | (1 << 4095) | 1 for _ in range(T)]
+    R = T * K * NK
+    per_row = [ms[r // (K * NK)] for r in range(R)]
+    rm = ops.rows_modulus(per_row, 512, dev)
+    L16 = rm.table.L16
+    ints = [rng.getrandbits(16 * L16) for _ in range(R * NK)]
+    x = torch.as_tensor(bi.from_ints(ints, L16), device=dev).reshape(
+        R, NK, L16)
+    tree_ms, got = time_ms(lambda: ops.prod_rows(x, rm), 5)
+    rows = 8
+    plain_ms, plain = once_ms(lambda: ops.prod_rows(
+        x[:rows].cpu(), ops.rows_modulus(per_row[:rows], 512, "cpu")))
+    want = []
+    for r in range(2):
+        p = 1
+        for v in ints[r * NK:(r + 1) * NK]:
+            p = p * v % per_row[r]
+        want.append(p)
+    assert bi.to_ints(got[:2].cpu()) == want, \
+        "prod_rows differs from Python ints"
+    assert torch.equal(got[:rows].cpu(), plain), \
+        "prod_rows differs from its plain version"
+    levels = [R * h for h in tree_levels(NK)]
+    bound = sum(bound_ms(word_products("mulmod", 128), B,
+                         B * 3 * L16 * 4 + B * 4)[0] for B in levels)
+    log(f"  prod_rows at S1's matvec, {R} rows of {NK} factors at k=128 "
+        f"over {T} moduli: {len(levels)} mulmod_rows launches (B = "
+        f"{', '.join(map(str, levels))}), {tree_ms:.4f} ms per tree "
+        f"(bound {bound:.4f} ms, the sum of the levels'; plain "
+        f"{plain_ms:.1f} ms for {rows} rows on the host), equal")
+    return dict(shape=f"R={R} N={NK} k=128 over {T} moduli", R=R, N=NK,
+                levels=levels, ms=tree_ms, bound_ms=bound,
+                plain_ms=plain_ms, plain_rows=rows, max_abs_err=0)
+
+
 class LaunchRecorder:
     """While installed, wraps the five kernel wrappers: CUDA events around
     every launch, keyed by (body, B, k); the first launch of each
@@ -2004,6 +2081,352 @@ def run_serve_clis(calib):
                 serve_sim=sim)
 
 
+# ---------------------------------------------------------------------------
+# the LM serving stack: the five model families' prefill and decode, the
+# greedy Engine and launch.serve (plain PyTorch; no Pallas, so no kernel)
+# ---------------------------------------------------------------------------
+
+#: L2's archs at full width and depth (float32 parameters 0.85-14.2 GB)
+#: and those at full width with the depth cut to LM_CUT_LAYERS
+LM_FULL_DEPTH = ("xlstm_125m", "seamless_m4t_medium", "recurrentgemma_2b")
+LM_CUT_DEPTH = ("codeqwen15_7b", "granite_34b", "command_r_35b",
+                "llama4_scout_17b_a16e", "qwen2_moe_a27b", "llava_next_34b")
+LM_CUT_LAYERS = 2
+LM_BATCH, LM_PROMPT, LM_NEW, LM_NEW_L2 = 4, 16, 32, 16
+LM_LONG = 2048                  # L1's flash-path prefill, batch 1
+#: the reference's own bounds: bf16 prefill/decode against forward
+#: (tests/test_models.py:84,92) and the int8 cache against bf16 (:184)
+PARITY_BOUND, INT8_BOUND = 0.15, 0.25
+#: L3: the card's float32 logits against the CPU's
+CARD_CPU_BOUND = 1e-3
+#: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
+BF16_PER_S = 989e12
+
+
+def lm_inputs(cfg, B, S, seed=0):
+    """Prompts (and the enc-dec family's frames), as launch.serve makes
+    them."""
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(0, cfg.vocab, (B, S), dtype=np.int32)
+    frames = (rng.normal(0, 0.02, (B, 8, cfg.d_model)).astype(np.float32)
+              if cfg.family == "encdec" else None)
+    return prompts, frames
+
+
+def lm_gap(a, b):
+    """max |a - b|; fails on a NaN in either."""
+    a, b = a.float(), b.float()
+    assert not torch.isnan(a).any() and not torch.isnan(b).any(), "NaN"
+    return float((a - b).abs().max())
+
+
+def lm_gaps(m, cfg, params, prompts, frames, dev):
+    """The reference's parity check on the card: prefill's last logits and
+    one decode step against ``forward`` on the same and the extended
+    tokens; returns the two max gaps."""
+    kw = {} if frames is None else {
+        "frames": torch.as_tensor(frames, device=dev)}
+    tokens = torch.as_tensor(prompts, device=dev).long()
+    B, S = tokens.shape
+    with torch.inference_mode():
+        full = m.forward(params, tokens, cfg, **kw)
+        cache = m.init_cache(cfg, B, S + 4, device=dev)
+        lg, cache = m.prefill(params, tokens, cfg, cache, **kw)
+        nxt = full[:, -1].argmax(-1)
+        lg2, _ = m.decode_step(params, nxt, cache, cfg)
+        full2 = m.forward(params, torch.cat([tokens, nxt[:, None]], 1),
+                          cfg, **kw)
+        return (lm_gap(lg.reshape(B, -1), full[:, -1]),
+                lm_gap(lg2, full2[:, -1]))
+
+
+def lm_parity(m, cfg, params, prompts, frames, dev):
+    pre, dec = lm_gaps(m, cfg, params, prompts, frames, dev)
+    assert pre < PARITY_BOUND and dec < PARITY_BOUND, \
+        f"{cfg.name} ({cfg.dtype}): prefill gap {pre}, decode gap {dec}"
+    return pre, dec
+
+
+def lm_time_steps(m, cfg, params, prompts, frames, dev, steps):
+    """Wall time of one prefill of ``prompts`` and the mean of ``steps``
+    decode steps after it (the Engine's path; device synchronized around
+    each), after a warm-up prefill and step."""
+    kw = {} if frames is None else {
+        "frames": torch.as_tensor(frames, device=dev)}
+    tokens = torch.as_tensor(prompts, device=dev).long()
+    B, S = tokens.shape
+    with torch.inference_mode():
+        for timed in (False, True):
+            cache = m.init_cache(cfg, B, S + steps + 1, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = m.prefill(params, tokens, cfg, cache, **kw)
+            torch.cuda.synchronize()
+            pre_s = time.perf_counter() - t0
+            tok = lg.reshape(B, -1).argmax(-1)
+            t0 = time.perf_counter()
+            for _ in range(steps if timed else 1):
+                lg, cache = m.decode_step(params, tok, cache, cfg)
+                tok = lg.argmax(-1)
+            torch.cuda.synchronize()
+            dec_s = (time.perf_counter() - t0) / (steps if timed else 1)
+    return pre_s, dec_s
+
+
+def lm_graph_decode_ms(m, cfg, params, prompts, dev, reps=10):
+    """Device time of one decode step: the step captured in a CUDA graph
+    and replayed (its kernels back to back, no host work between them),
+    by CUDA events over ``reps`` replays."""
+    tokens = torch.as_tensor(prompts, device=dev).long()
+    B, S = tokens.shape
+    with torch.inference_mode():
+        cache = m.init_cache(cfg, B, S + 1, device=dev)
+        lg, cache = m.prefill(params, tokens, cfg, cache)
+        tok = lg.reshape(B, -1).argmax(-1)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):          # warm-up off the capture
+            m.decode_step(params, tok, cache, cfg)
+        torch.cuda.current_stream().wait_stream(side)
+        cache["len"] = S
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            m.decode_step(params, tok, cache, cfg)
+        graph.replay()
+        ms, _ = time_ms(graph.replay, reps)
+    del graph, cache
+    return ms
+
+
+def lm_free():
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_generate(Engine, cfg, params, prompts, frames, max_new):
+    eng = Engine(cfg, params)                    # holds the bf16 copy
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, max_new, frames=frames)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    assert out.shape == (prompts.shape[0], max_new), out.shape
+    assert (out >= 0).all() and (out < cfg.padded_vocab).all()
+    return out, secs
+
+
+def run_lm_l1(configs, registry, transformer, Engine, dev):
+    """L1: Yi-9B at its full published configuration."""
+    cfg = configs.get_config("yi_9b")
+    m = registry.get_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = m.init(cfg, SEED, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    f32_gb = n_params * 4 / 1e9
+    log(f"  yi_9b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads, n_kv {cfg.n_kv}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}: {n_params:,} parameters ({f32_gb:.2f} GB float32; "
+        f"analytic count {cfg.param_count():,}), drawn in {init_s:.2f} s")
+    prompts, _ = lm_inputs(cfg, LM_BATCH, LM_PROMPT)
+    out, gen_s = lm_generate(Engine, cfg, params, prompts, None, LM_NEW)
+    held_gb = sum(t.numel() * t.element_size() for mod in params.modules()
+                  for t in getattr(mod, "_held", {}).values()) / 1e9
+    res = {"params": n_params, "f32_gb": f32_gb, "held_bf16_gb": held_gb,
+           "init_s": init_s, "generate_s": gen_s,
+           "generate_tok_s": LM_BATCH * LM_NEW / gen_s,
+           "sample": out[0].tolist()}
+    pre_s, dec_s = lm_time_steps(m, cfg, params, prompts, None, dev, LM_NEW)
+    res.update(prefill16_s=pre_s,
+               prefill16_tok_s=LM_BATCH * LM_PROMPT / pre_s,
+               decode_ms=dec_s * 1e3,
+               decode_graph_ms=lm_graph_decode_ms(m, cfg, params, prompts,
+                                                  dev))
+    res["prefill_gap"], res["decode_gap"] = lm_parity(
+        m, cfg, params, prompts, None, dev)
+    # the flash path: a 2,048-token prompt at batch 1 (timed after one
+    # untimed run), its last logits against forward's
+    long_prompt, _ = lm_inputs(cfg, 1, LM_LONG, seed=1)
+    tokens = torch.as_tensor(long_prompt, device=dev).long()
+    with torch.inference_mode():
+        for _ in range(2):
+            cache = m.init_cache(cfg, 1, LM_LONG, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = m.prefill(params, tokens, cfg, cache)
+            torch.cuda.synchronize()
+            long_s = time.perf_counter() - t0
+        full = m.forward(params, tokens, cfg)
+        res["prefill2048_gap"] = lm_gap(lg.reshape(1, -1), full[:, -1])
+        del full, cache
+    assert res["prefill2048_gap"] < PARITY_BOUND, res["prefill2048_gap"]
+    res.update(prefill2048_s=long_s, prefill2048_tok_s=LM_LONG / long_s)
+    # the int8 cache: token-by-token decode of a 12-token prompt, then one
+    # step against the bf16 cache's (the reference's test_models.py:169)
+    toks = torch.as_tensor(lm_inputs(cfg, LM_BATCH, 12, seed=2)[0],
+                           device=dev).long()
+    with torch.inference_mode():
+        cache = m.init_cache(cfg, LM_BATCH, 18, device=dev)
+        lg, cache = m.prefill(params, toks, cfg, cache)
+        nxt = lg.reshape(LM_BATCH, -1).argmax(-1)
+        lg_bf16, _ = m.decode_step(params, nxt, cache, cfg)
+        qc = transformer.init_cache(cfg, LM_BATCH, 18, quantized=True,
+                                    device=dev)
+        for i in range(12):
+            _, qc = m.decode_step(params, toks[:, i], qc, cfg)
+        lg_q, _ = m.decode_step(params, nxt, qc, cfg)
+        res["int8_gap"] = lm_gap(lg_q, lg_bf16)
+    assert res["int8_gap"] < INT8_BOUND, res["int8_gap"]
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    # least time: the bf16 weights a step reads (all but the embedding
+    # table, of which it reads B rows) over HBM, against its bf16 flops
+    body = n_params - cfg.padded_vocab * cfg.d_model
+    res["decode_bound_ms"] = max(body * 2 / HBM_BYTES_PER_S,
+                                 2 * body * LM_BATCH / BF16_PER_S) * 1e3
+    log(f"  yi_9b: generate B={LM_BATCH}, prompt {LM_PROMPT}, {LM_NEW} new: "
+        f"{gen_s:.3f} s ({res['generate_tok_s']:.1f} tok/s); prefill "
+        f"{LM_BATCH}x{LM_PROMPT}: {pre_s * 1e3:.2f} ms "
+        f"({res['prefill16_tok_s']:.1f} tok/s); prefill 1x{LM_LONG} (flash): "
+        f"{long_s * 1e3:.1f} ms ({res['prefill2048_tok_s']:.1f} tok/s); "
+        f"decode {res['decode_ms']:.2f} ms/step, its kernels "
+        f"{res['decode_graph_ms']:.2f} ms replayed as a CUDA graph (bound "
+        f"{res['decode_bound_ms']:.2f} ms); peak "
+        f"{res['peak_gb']:.2f} GB allocated ({held_gb:.2f} GB of it the "
+        f"held bf16 copy)")
+    log(f"  yi_9b checks: prefill-forward {res['prefill_gap']:.4f}, "
+        f"decode-forward {res['decode_gap']:.4f}, prefill {LM_LONG} "
+        f"{res['prefill2048_gap']:.4f} (bound {PARITY_BOUND}); int8-bf16 "
+        f"cache {res['int8_gap']:.4f} (bound {INT8_BOUND}); no NaN")
+    del params
+    lm_free()
+    return res
+
+
+def run_lm_l2(configs, registry, Engine, dev):
+    """L2: the other nine archs at full width, each freed before the next."""
+    results = {}
+    for arch in LM_FULL_DEPTH + LM_CUT_DEPTH:
+        cfg = configs.get_config(arch)
+        cut = None
+        if arch in LM_CUT_DEPTH:
+            cut = f"n_layers {cfg.n_layers} -> {LM_CUT_LAYERS}"
+            cfg = replace(cfg, n_layers=LM_CUT_LAYERS)
+        m = registry.get_model(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        params = m.init(cfg, SEED, dev)
+        n_params = sum(p.numel() for p in params.parameters())
+        prompts, frames = lm_inputs(cfg, LM_BATCH, LM_PROMPT)
+        out, gen_s = lm_generate(Engine, cfg, params, prompts, frames,
+                                 LM_NEW_L2)
+        pre_s, dec_s = lm_time_steps(m, cfg, params, prompts, frames, dev,
+                                     LM_NEW_L2)
+        # the gate runs in float32: at full width bf16 rounding alone
+        # moves these archs' logits past the bound (xLSTM: the reference's
+        # own prefill and forward differ by 0.39 on the same weights), and
+        # an MoE call's capacity drops depend on its token count, so its
+        # experts take every assignment there (capacity E / top_k)
+        gate_cfg = replace(cfg, dtype="float32")
+        if cfg.family == "moe":
+            gate_cfg = replace(gate_cfg, capacity_factor=float(
+                cfg.experts) / cfg.top_k)
+        pre_gap, dec_gap = lm_parity(m, gate_cfg, params, prompts, frames,
+                                     dev)
+        bf16_gaps = lm_gaps(m, cfg, params, prompts, frames, dev)
+        r = {"cut": cut, "params": n_params, "f32_gb": n_params * 4 / 1e9,
+             "generate_s": gen_s,
+             "generate_tok_s": LM_BATCH * LM_NEW_L2 / gen_s,
+             "prefill16_ms": pre_s * 1e3, "decode_ms": dec_s * 1e3,
+             "prefill_gap": pre_gap, "decode_gap": dec_gap,
+             "bf16_gaps": bf16_gaps,
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "sample": out[0][:8].tolist()}
+        results[arch] = r
+        log(f"  {arch}: {cut or 'full depth'}, {n_params:,} parameters "
+            f"({r['f32_gb']:.2f} GB f32), peak {r['peak_gb']:.2f} GB; "
+            f"generate {gen_s:.3f} s ({r['generate_tok_s']:.1f} tok/s); "
+            f"prefill {r['prefill16_ms']:.2f} ms, decode "
+            f"{r['decode_ms']:.2f} ms/step; float32 gaps prefill "
+            f"{pre_gap:.4f}, decode {dec_gap:.4f} (bound {PARITY_BOUND}); "
+            f"bf16 gaps {bf16_gaps[0]:.4f}, {bf16_gaps[1]:.4f}; no NaN")
+        del params
+        lm_free()
+    return results
+
+
+def run_lm_l3(configs, registry, Engine, dev):
+    """L3: each reduced config in float32, the card's generate equal to
+    the port's CPU run token for token, prefill and decode logits within
+    CARD_CPU_BOUND."""
+    assert not torch.backends.cuda.matmul.allow_tf32, \
+        "float32 checks need TF32 off for matmuls"
+    results = {}
+    for arch in configs.ARCHS:
+        cfg = replace(configs.get_reduced(arch), dtype="float32")
+        m = registry.get_model(cfg)
+        cpu = m.init(cfg, SEED, "cpu")
+        card = m.init(cfg, SEED, "cpu").to(dev)
+        prompts, frames = lm_inputs(cfg, 2, 8)
+        want = Engine(cfg, cpu).generate(prompts, 8, frames=frames)
+        got = Engine(cfg, card).generate(prompts, 8, frames=frames)
+        assert np.array_equal(got, want), (arch, got, want)
+        gaps = []
+        for params, d in ((cpu, torch.device("cpu")), (card, dev)):
+            kw = {} if frames is None else {
+                "frames": torch.as_tensor(frames, device=d)}
+            with torch.inference_mode():
+                cache = m.init_cache(cfg, 2, 9, device=d)
+                lg, cache = m.prefill(
+                    params, torch.as_tensor(prompts, device=d).long(), cfg,
+                    cache, **kw)
+                lg2, _ = m.decode_step(
+                    params, torch.as_tensor(want[:, 0], device=d).long(),
+                    cache, cfg)
+            gaps.append((lg.cpu(), lg2.cpu()))
+        gap = max(lm_gap(a, b) for a, b in zip(*gaps))
+        assert gap < CARD_CPU_BOUND, (arch, gap)
+        results[arch] = gap
+    log("  card equals CPU token for token; max logit gaps " + json.dumps(
+        {a: float(f"{g:.3g}") for a, g in results.items()}))
+    return results
+
+
+def run_lm_l4():
+    """L4: ``python -m repro_torch.launch.serve --arch xlstm_125m --batch 4``
+    (full configuration) as a subprocess."""
+    rc, out, secs = run_cli(["repro_torch.launch.serve", "--arch",
+                             "xlstm_125m", "--batch", "4"], 300)
+    lines = out.strip().splitlines()
+    assert lines[0].startswith("generated (4, 32)"), out
+    assert lines[1].startswith("sample:"), out
+    log(f"  launch.serve --arch xlstm_125m --batch 4: exit {rc} in "
+        f"{secs:.1f} s; {lines[0]}")
+    return {"rc": rc, "secs": secs, "line": lines[0]}
+
+
+def run_lm_phase(dev):
+    from repro_torch import configs
+    from repro_torch.models import registry, transformer
+    from repro_torch.serve.engine import Engine
+    t0 = time.perf_counter()
+    lm = {}
+    log("LM L1: yi_9b at its full configuration, Engine.generate and the "
+        "2,048-token flash prefill:")
+    lm["l1"] = run_lm_l1(configs, registry, transformer, Engine, dev)
+    log(f"LM L2: the other nine archs at full width ({', '.join(LM_CUT_DEPTH)}"
+        f" cut to {LM_CUT_LAYERS} layers):")
+    lm["l2"] = run_lm_l2(configs, registry, Engine, dev)
+    log("LM L3: the ten reduced configs in float32, card against CPU:")
+    lm["l3"] = run_lm_l3(configs, registry, Engine, dev)
+    log("LM L4: python -m repro_torch.launch.serve:")
+    lm["l4"] = run_lm_l4()
+    lm["phase_s"] = time.perf_counter() - t0
+    log(f"  LM phase: {lm['phase_s']:.1f} s")
+    return lm
+
+
 def main():
     require_card()
     sys.path.insert(0, os.path.join(REPO, "src"))
@@ -2129,6 +2552,7 @@ def main():
     # the serving path, after every earlier phase
     log("per-row-modulus kernels vs plain versions at n^2, timed:")
     times.update(time_rows_kernels(bi, ops, lm, mx, geometry, ptxas, dev))
+    prod_tree = time_prod_rows(bi, ops, dev)
     serving, serve_launches = {}, {}
     with LaunchRecorder(mx, lm, geometry) as launch_rec:
         log(f"serving S1: ProtocolEngine, {len(SERVE_SEEDS)} gold LASSO "
@@ -2150,7 +2574,12 @@ def main():
     log("serving S3: serve_sim, obs.report and obs.sentinel as "
         "subprocesses:")
     serving["s3"] = run_serve_clis(calib)
+    serving["prod_rows"] = prod_tree
     log("serving: " + json.dumps(serving))
+
+    # the LM serving stack, after every earlier phase
+    lm = run_lm_phase(dev)
+    log("lm: " + json.dumps(lm))
 
     log(f"script: {time.perf_counter() - t_start:.1f} s")
 

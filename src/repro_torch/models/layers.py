@@ -1,0 +1,374 @@
+"""Shared model layers: norms, RoPE, GQA attention (naive / flash / decode),
+gated MLPs, embeddings, and the parameter tree they read.
+
+Port of ``repro.models.layers``.  Parameters live in a :class:`Params`
+tree (an ``nn.Module`` whose leaves are float32 parameters, read as
+``p["wq"]`` like the reference's dict pytree).  Matmuls run in the
+config's compute dtype (``cdtype``: bfloat16 unless ``cfg.dtype`` is
+``"float32"``); norms, softmax and RoPE angles run in float32.  A weight
+is cast to the compute dtype where it is used (``Params.w``), or read
+from the copy :meth:`Params.hold` cast once: the cast is exact, so both
+give the same numbers.
+
+Not ported: the reference's ``set_activation_sharding``/``constrain_acts``
+(its ``layers.py:33-55``), hooks for the TPU mesh that do nothing without
+one.  They come back with the multi-card work.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .. import resolve_device
+
+ACTS = {
+    "silu": F.silu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "relu": F.relu,
+}
+
+MASK_VALUE = -1e30          # the reference's mask value (not -inf)
+
+
+def cdtype(cfg) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+class Params(nn.Module):
+    """A tree of parameters built from a nested dict of tensors.
+
+    Dicts become sub-trees, lists ``nn.ModuleList``s of sub-trees, tensors
+    parameters (no gradient: the port serves, it does not train yet).
+    ``p[name]`` and ``name in p`` read it like the reference's pytree.
+    """
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for name, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(name, Params(v))
+            elif isinstance(v, (list, tuple)):
+                self.add_module(name, nn.ModuleList(Params(x) for x in v))
+            else:
+                self.register_parameter(
+                    name, nn.Parameter(v, requires_grad=False))
+        self._held = {}
+
+    def __getitem__(self, name):
+        return getattr(self, name)
+
+    def __contains__(self, name) -> bool:
+        return name in self._parameters or name in self._modules
+
+    def w(self, name: str, dtype: torch.dtype) -> torch.Tensor:
+        """Parameter ``name`` in ``dtype``: the held copy, else a cast."""
+        held = self._held.get((name, dtype))
+        return held if held is not None else self._parameters[name].to(dtype)
+
+    def take(self, name: str, idx: torch.Tensor, dtype: torch.dtype):
+        """Rows ``idx`` of parameter ``name`` in ``dtype`` (the embedding
+        lookup; gathering before the cast gives the same numbers)."""
+        held = self._held.get((name, dtype))
+        if held is not None:
+            return held[idx]
+        return self._parameters[name][idx].to(dtype)
+
+    def hold(self, dtype: torch.dtype) -> "Params":
+        """Cast every matrix of the tree to ``dtype`` once and keep the
+        copies beside the float32 parameters (vectors are cast per use)."""
+        for mod in self.modules():
+            if isinstance(mod, Params):
+                for name, p in mod._parameters.items():
+                    if p.ndim >= 2 and p.dtype != dtype:
+                        mod._held[(name, dtype)] = p.detach().to(dtype)
+        return self
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+
+class Init:
+    """Initial values with the reference's scales, drawn from one seeded
+    ``torch.Generator`` on ``device`` (JAX's PRNG stream cannot be
+    reproduced: carry the reference's values over with
+    ``repro_torch.convert.lm_params_from_numpy`` to compare)."""
+
+    def __init__(self, device, seed: int = 0):
+        self.device = torch.device(device)
+        self.gen = torch.Generator(device=self.device)
+        self.gen.manual_seed(seed)
+
+    def normal(self, shape, scale: float) -> torch.Tensor:
+        t = torch.randn(shape, generator=self.gen, device=self.device,
+                        dtype=torch.float32)
+        return t.mul_(float(scale))
+
+    def dense(self, shape, scale: float | None = None) -> torch.Tensor:
+        """``shape[-2]`` is the fan-in (a stack of matrices keeps it)."""
+        return self.normal(shape, scale if scale is not None
+                           else 1.0 / math.sqrt(shape[-2]))
+
+    def embed(self, vocab: int, d: int) -> torch.Tensor:
+        return self.normal((vocab, d), 0.01)
+
+    def full(self, shape, value: float) -> torch.Tensor:
+        return torch.full(shape, float(value), dtype=torch.float32,
+                          device=self.device)
+
+    def zeros(self, shape) -> torch.Tensor:
+        return self.full(shape, 0.0)
+
+
+class ShapeInit(Init):
+    """Same tree, no values: tensors on the ``meta`` device (the shapes
+    ``lm_params_from_numpy`` checks against)."""
+
+    def __init__(self):
+        self.device = torch.device("meta")
+
+    def normal(self, shape, scale: float) -> torch.Tensor:
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+
+
+def make_init(device=None, seed: int = 0) -> Init:
+    return Init(resolve_device(device), seed)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps)
+    return (out * (1.0 + w.float())).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
+    """x: (..., S, H, D) with D even; positions: (..., S) absolute indices.
+    Half-split rotation; frequencies and angles in float32."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions[..., None].to(torch.float32) * freqs     # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]                       # (..., S, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def _group(q: torch.Tensor, n_kv: int) -> torch.Tensor:
+    """(B,S,H,D) -> (B,S,KV,rep,D) exposing the GQA group structure."""
+    B, S, H, D = q.shape
+    return q.reshape(B, S, n_kv, H // n_kv, D)
+
+
+def attention_naive(q, k, v, *, causal=True, window=0, q_pos0=0, k_pos0=0):
+    """Reference attention. q (B,S,H,D); k,v (B,T,KV,D). f32 softmax."""
+    B, S, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    qg = _group(q, KV).float()
+    s = torch.einsum("bsgrd,btgd->bgrst", qg, k.float())
+    s = s / math.sqrt(D)
+    qpos = q_pos0 + torch.arange(S, device=q.device)
+    kpos = k_pos0 + torch.arange(T, device=q.device)
+    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos[:, None] >= kpos[None, :]
+    if window:
+        mask &= qpos[:, None] - kpos[None, :] < window
+    s = s.masked_fill(~mask, MASK_VALUE)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bgrst,btgd->bsgrd", p, v.float())
+    return out.reshape(B, S, H, D).to(q.dtype)
+
+
+def attention_flash(q, k, v, *, causal=True, window=0,
+                    q_chunk=512, k_chunk=512):
+    """Online-softmax chunked attention (no S x T score matrix).
+
+    Sequences are padded up to chunk multiples: padded key positions are
+    masked, padded query rows sliced off.  The running max starts at the
+    mask value and the row sum is floored at 1e-30, as in the reference.
+    """
+    B, S, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    q_chunk = min(q_chunk, S)
+    k_chunk = min(k_chunk, T)
+    S0, T0 = S, T
+    pad_q = (-S) % q_chunk
+    pad_k = (-T) % k_chunk
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+        S += pad_q
+    if pad_k:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
+        T += pad_k
+    nq, nk = S // q_chunk, T // k_chunk
+    rep = H // KV
+    scale = float(1.0 / math.sqrt(D))
+    dev = q.device
+    chunks = []
+    for qi in range(nq):
+        qc = q[:, qi * q_chunk:(qi + 1) * q_chunk]
+        qc = _group(qc, KV).float() * scale
+        qpos = qi * q_chunk + torch.arange(q_chunk, device=dev)
+        m = torch.full((B, KV, rep, q_chunk), MASK_VALUE, device=dev)
+        l = torch.zeros((B, KV, rep, q_chunk), device=dev)
+        acc = torch.zeros((B, KV, rep, q_chunk, D), device=dev)
+        for kj in range(nk):
+            kc = k[:, kj * k_chunk:(kj + 1) * k_chunk]
+            vc = v[:, kj * k_chunk:(kj + 1) * k_chunk]
+            s = torch.einsum("bsgrd,btgd->bgrst", qc, kc.float())
+            kpos = kj * k_chunk + torch.arange(k_chunk, device=dev)
+            mask = (kpos < T0)[None, :].expand(q_chunk, k_chunk)
+            if causal:
+                mask = mask & (qpos[:, None] >= kpos[None, :])
+            if window:
+                mask = mask & (qpos[:, None] - kpos[None, :] < window)
+            s = s.masked_fill(~mask, MASK_VALUE)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bgrst,btgd->bgrsd", p, vc.float())
+            m = m_new
+        out = acc / torch.clamp(l[..., None], min=1e-30)
+        # (B,KV,rep,qc,D) -> (B,qc,H,D)
+        chunks.append(out.permute(0, 3, 1, 2, 4).reshape(B, q_chunk, H, D))
+    out = torch.cat(chunks, dim=1)
+    return out[:, :S0].to(q.dtype)
+
+
+def attention_decode(q, k_cache, v_cache, cache_len: int, *, window=0):
+    """Single new token vs. a (B, Smax, KV, D) cache. q: (B, 1, H, D)."""
+    B, _, H, D = q.shape
+    T, KV = k_cache.shape[1], k_cache.shape[2]
+    qg = _group(q, KV).float()
+    s = torch.einsum("bsgrd,btgd->bgrst", qg, k_cache.float())
+    s = s / math.sqrt(D)
+    kpos = torch.arange(T, device=q.device)
+    mask = kpos < cache_len
+    if window:
+        mask &= kpos >= cache_len - window
+    s = s.masked_fill(~mask, MASK_VALUE)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bgrst,btgd->bsgrd", p, v_cache.float())
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+def attention(q, k, v, *, causal=True, window=0, flash_threshold=2048):
+    """Dispatch: naive below the threshold, flash from it on."""
+    if q.shape[1] >= flash_threshold or k.shape[1] >= flash_threshold:
+        return attention_flash(q, k, v, causal=causal, window=window)
+    return attention_naive(q, k, v, causal=causal, window=window)
+
+
+# ---------------------------------------------------------------------------
+# Attention block params / apply
+# ---------------------------------------------------------------------------
+
+def init_attn(init: Init, cfg) -> dict:
+    d, hd = cfg.d_model, cfg.hd
+    H, KV = cfg.q_heads, cfg.n_kv
+    p = {
+        "wq": init.dense((d, H * hd)),
+        "wk": init.dense((d, KV * hd)),
+        "wv": init.dense((d, KV * hd)),
+        "wo": init.dense((H * hd, d)),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = init.zeros((H * hd,))
+        p["bk"] = init.zeros((KV * hd,))
+        p["bv"] = init.zeros((KV * hd,))
+    return p
+
+
+def qkv_proj(p: Params, x, cfg, positions):
+    """x (B,S,d) -> q (B,S,H,hd), k/v (B,S,KV,hd), RoPE applied."""
+    B, S, _ = x.shape
+    hd = cfg.hd
+    dt = x.dtype
+    q = x @ p.w("wq", dt)
+    k = x @ p.w("wk", dt)
+    v = x @ p.w("wv", dt)
+    if cfg.qkv_bias:
+        q = q + p.w("bq", dt)
+        k = k + p.w("bk", dt)
+        v = v + p.w("bv", dt)
+    q = q.reshape(B, S, cfg.q_heads, hd)
+    k = k.reshape(B, S, cfg.n_kv, hd)
+    v = v.reshape(B, S, cfg.n_kv, hd)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attn_out(p: Params, o, cfg):
+    B, S, H, hd = o.shape
+    return o.reshape(B, S, H * hd) @ p.w("wo", o.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU / GeGLU)
+# ---------------------------------------------------------------------------
+
+def init_mlp(init: Init, d: int, ff: int) -> dict:
+    return {
+        "w_gate": init.dense((d, ff)),
+        "w_up": init.dense((d, ff)),
+        "w_down": init.dense((ff, d)),
+    }
+
+
+def mlp(p: Params, x, act: str = "silu"):
+    dt = x.dtype
+    h = ACTS[act](x @ p.w("w_gate", dt)) * (x @ p.w("w_up", dt))
+    return h @ p.w("w_down", dt)
+
+
+# ---------------------------------------------------------------------------
+# Embedding and output head
+# ---------------------------------------------------------------------------
+
+def embed(params: Params, tokens: torch.Tensor, cfg) -> torch.Tensor:
+    return params.take("embed", tokens, cdtype(cfg))
+
+
+def head_logits(params: Params, x: torch.Tensor, cfg, norm="ln_f"):
+    """Final norm, then the (tied or separate) head; float32 logits."""
+    x = rms_norm(x, params[norm], cfg.norm_eps)
+    if cfg.tie_embeddings:
+        w = params.w("embed", x.dtype).T
+    else:
+        w = params.w("head", x.dtype)
+    return (x @ w).float()
+
+
+def nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token NLL over labels >= 0 (the reference's loss)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return torch.sum((lse - ll) * mask) / torch.clamp(mask.sum(), min=1.0)

@@ -4,7 +4,6 @@
   engine (port of ``repro.serve.protocol_engine``): many concurrent
   protocol instances on one shared virtual clock, their Paillier ops
   fused across tenants into per-row-modulus kernel launches.
-
-The reference's language-model serving engine (``repro.serve.engine``) is
-not ported.
+* ``engine`` — the batched greedy-decoding engine over the language
+  models of ``repro_torch.models`` (port of ``repro.serve.engine``).
 """

@@ -28,7 +28,9 @@ their plain versions and Python ints at k = 8, 64 and 128 with three
 moduli per launch (one with a top byte of 1), ragged batches and
 2,048-bit exponents at n^2; the rows Paillier ops on the card against
 the CPU; and a small ``ProtocolEngine`` run on the card against its
-tenants' solo runs.  These tests need an NVIDIA card and skip
+tenants' solo runs.  The ten reduced language models in float32 give
+the same greedy tokens on the card as on the CPU, with logits within
+1e-3.  These tests need an NVIDIA card and skip
 without one; on the card run
 ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
@@ -631,3 +633,46 @@ def test_serving_engine_on_card_equals_solo_runs(dev):
         assert report_core(res[tid].stats) == report_core(solo.stats), tid
         assert eng.tenants[tid].rt.box.rng.getstate() == \
             rt.box.rng.getstate(), tid
+
+
+# ---------------------------------------------------------------------------
+# the LM serving stack: card against CPU, float32 (TF32 off)
+# ---------------------------------------------------------------------------
+
+LM_ARCHS = ("codeqwen15_7b", "yi_9b", "granite_34b", "command_r_35b",
+            "llama4_scout_17b_a16e", "qwen2_moe_a27b", "llava_next_34b",
+            "seamless_m4t_medium", "xlstm_125m", "recurrentgemma_2b")
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_engine_on_card_equals_cpu(dev, arch):
+    """Each reduced config in float32: the card's greedy tokens equal the
+    CPU's, and its prefill and decode logits lie within 1e-3."""
+    import dataclasses
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import registry
+    from repro_torch.serve.engine import Engine
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+    m = registry.get_model(cfg)
+    cpu = m.init(cfg, 0, "cpu")
+    card = m.init(cfg, 0, "cpu").to(dev)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab, (2, 8), dtype=np.int32)
+    frames = (rng.normal(0, 0.02, (2, 8, cfg.d_model)).astype(np.float32)
+              if cfg.family == "encdec" else None)
+    want = Engine(cfg, cpu).generate(prompts, 8, frames=frames)
+    assert np.array_equal(Engine(cfg, card).generate(prompts, 8,
+                                                     frames=frames), want)
+    outs = []
+    for params, d in ((cpu, torch.device("cpu")), (card, dev)):
+        kw = {} if frames is None else {
+            "frames": torch.as_tensor(frames, device=d)}
+        cache = m.init_cache(cfg, 2, 9, device=d)
+        lg, cache = m.prefill(params, torch.as_tensor(prompts, device=d)
+                              .long(), cfg, cache, **kw)
+        lg2, _ = m.decode_step(params, torch.as_tensor(want[:, 0], device=d)
+                               .long(), cache, cfg)
+        outs.append((lg.cpu(), lg2.cpu()))
+    for a, b in zip(*outs):
+        assert float((a - b).abs().max()) < 1e-3
