@@ -128,14 +128,33 @@ package, and:
     token for token, logits within 1e-3 (TF32 off); L4, ``python -m
     repro_torch.launch.serve --arch xlstm_125m --batch 4`` as a
     subprocess;
-13. prints the kernel table as one JSON line (each body's launches on the
+13. trains (``repro_torch.train``, ``data.pipeline``, ``launch.train``;
+    plain PyTorch and ``torch.distributed``): T1, Yi-9B at full width
+    with 8 of its 48 layers (1.91 B parameters), bf16 matmuls on float32
+    master weights, remat, six ``make_train_step`` steps at batch 4 x
+    1,024 from ``TokenPipeline`` (finite losses, the last below the
+    first), with its step time, tokens/s, peak memory, the step's bound
+    and one more step split by CUDA events (loss and backward, AdamW); T2, ``python -m repro_torch.launch.train --arch xlstm_125m``
+    (full configuration) for 30 steps with a checkpoint every 10 (the
+    loss falls), then, with step 30's checkpoint removed, ``--resume``
+    from step 20: the pipeline cursor continues, the first resumed loss
+    equals the uninterrupted run's and the others lie within 1e-2; T3,
+    each reduced config in float32 on the card against the CPU from the
+    same weights: loss and grad norm within 1e-4 relative, each gradient
+    leaf within 1e-4 of its max-abs, and after one ``make_train_step``
+    step each parameter within 0.5 lr; T4, ``make_dp_compressed_step``
+    (bits 8, error feedback) for 8 steps on a one-rank NCCL process
+    group (the loss falls) and ``make_spmd_admm`` on it against its run
+    on a gloo group on the CPU (within 1e-10), the group torn down after;
+14. prints the kernel table as one JSON line (each body's launches on the
     main path — for the per-row bodies on S1 — on the Barrett arm and on
-    each path of steps 9, 10 and 11; the LM stack has no kernel of its
-    own), then as its last line ``{"ok": true, "device": {...}}``.
+    each path of steps 9, 10 and 11; the LM stack, serving and
+    training, has no kernel of its own), then as its last line
+    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
 result.  Exact integer work: the tolerance of every comparison is zero;
-the LM checks' tolerances are stated in step 12.
+the LM checks' tolerances are stated in steps 12 and 13.
 """
 import contextlib
 import dataclasses
@@ -2427,6 +2446,326 @@ def run_lm_phase(dev):
     return lm
 
 
+# ---------------------------------------------------------------------------
+# LM training: trainable parameters, AdamW, the train step, the data
+# pipeline, checkpoints, launch.train, the compressed DP step and SPMD ADMM
+# (plain PyTorch and torch.distributed; no Pallas, so no kernel)
+# ---------------------------------------------------------------------------
+
+#: T1: Yi-9B at full width with the depth cut, batch x sequence, steps,
+#: peak learning rate (AdamW's first steps are sign steps; at this width
+#: a larger rate throws the loss up on the second step:
+#: scripts/train_lr_sweep.py)
+T1_LAYERS, T1_BATCH, T1_SEQ, T1_STEPS, T1_LR = 8, 4, 1024, 6, 3e-6
+#: T2: launch.train on xlstm_125m's full configuration: T2_STEPS steps
+#: with a checkpoint every T2_CKPT_EVERY, then --resume from T2_RESUME_AT
+T2_STEPS, T2_BATCH, T2_SEQ, T2_CKPT_EVERY, T2_RESUME_AT = 30, 8, 256, 10, 20
+#: T2: a resumed step's loss against the uninterrupted run's (the first
+#: resumed step is a forward from the same weights: equal to the printed
+#: digits; later steps carry the card's atomics' rounding in the
+#: embedding's and gather's backward, amplified by AdamW)
+T2_RESUME_TOL = 1e-2
+#: T3: card against CPU, float32 from the same weights: loss and grad
+#: norm relative; each gradient leaf against its max-abs (floored at
+#: T3_GRAD_REL of the model's largest gradient element: a leaf of float32
+#: noise); after one step each parameter element in units of lr (AdamW's
+#: g / (|g| + eps) turns a gradient gap d near eps = 1e-8 into up to
+#: lr d / (4 eps): float32 noise in, a fraction of a step out)
+T3_LOSS_REL, T3_GRAD_REL, T3_STEP_FRAC, T3_LR = 1e-4, 1e-4, 0.5, 1e-2
+#: T4: SPMD ADMM (float64) on the NCCL group against the gloo group's run
+T4_ADMM_TOL = 1e-10
+#: the H100's float32 rate outside the tensor cores (NVIDIA data sheet)
+FP32_PER_S = 67e12
+
+
+def train_step_bound(cfg, B, S, n_params):
+    """Least time of one dense ``make_train_step`` step (remat on) on the
+    card, from the code's shapes: its bf16 matmuls (forward, the blocks'
+    recomputed forward, backward twice the forward) over 989 TFLOP/s, its
+    float32 attention scores and weighted sums (``attention_naive``:
+    every (query, key) pair, masked or not) over 67 TFLOP/s, and AdamW's
+    28 bytes a parameter (read p, g, m, v; write p, m, v) over HBM."""
+    d, hd, H, KV, ff = cfg.d_model, cfg.hd, cfg.q_heads, cfg.n_kv, cfg.d_ff
+    T = B * S
+    layer = 2 * T * (d * H * hd + 2 * d * KV * hd + H * hd * d + 3 * d * ff)
+    head = 2 * T * d * cfg.padded_vocab
+    fwd = cfg.n_layers * layer + head
+    mm_flops = fwd + cfg.n_layers * layer + 2 * fwd
+    attn_fwd = cfg.n_layers * 2 * (2 * B * H * S * S * hd)
+    attn_flops = 4 * attn_fwd
+    adam_bytes = 28 * n_params
+    parts = {"bf16_matmul_ms": mm_flops / BF16_PER_S * 1e3,
+             "f32_attention_ms": attn_flops / FP32_PER_S * 1e3,
+             "adamw_bytes_ms": adam_bytes / HBM_BYTES_PER_S * 1e3}
+    return sum(parts.values()), dict(parts, bf16_tflop=mm_flops / 1e12,
+                                     f32_tflop=attn_flops / 1e12,
+                                     adamw_gb=adam_bytes / 1e9)
+
+
+def train_pipe(pipeline, registry, cfg, batch, seq):
+    """The trainer's pipeline for ``cfg``, as launch.train builds it."""
+    return pipeline.TokenPipeline(
+        vocab=cfg.vocab, batch=batch, seq=seq, seed=SEED,
+        prefix=cfg.n_prefix if cfg.frontend == "vision" else 0,
+        enc_len=registry.enc_len(cfg, seq) if cfg.family == "encdec"
+        else 0, d_model=cfg.d_model)
+
+
+def run_train_t1(configs, registry, pipeline, loop, optimizer, dev):
+    """T1: Yi-9B at full width, depth cut, bf16 compute on float32 master
+    weights, remat, six make_train_step steps on TokenPipeline batches."""
+    cfg = replace(configs.get_config("yi_9b"), n_layers=T1_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    state = loop.init_train_state(cfg, SEED, dev)
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    ocfg = optimizer.OptConfig(lr=T1_LR, warmup_steps=1,
+                               total_steps=T1_STEPS)
+    step = loop.make_train_step(cfg, ocfg, remat=True)
+    pipe = train_pipe(pipeline, registry, cfg, T1_BATCH, T1_SEQ)
+    losses, gnorms, secs = [], [], []
+    for _ in range(T1_STEPS):
+        batch = pipe.next(device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(met["loss"]))
+        gnorms.append(float(met["grad_norm"]))
+    assert all(np.isfinite(losses)) and all(np.isfinite(gnorms)), losses
+    assert losses[-1] < losses[0], f"T1: loss did not fall: {losses}"
+    # one more step split by CUDA events: loss and backward, then AdamW
+    params = state["params"]
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    batch = pipe.next(device=dev)
+    events[0].record()
+    registry.get_model(cfg).loss_fn(params, batch, cfg, remat=True,
+                                    use_scan=True).backward()
+    events[1].record()
+    optimizer.adamw_update([p.grad for p in params.parameters()],
+                           state["opt"], params, ocfg)
+    events[2].record()
+    torch.cuda.synchronize()
+    params.zero_grad(set_to_none=True)
+    split = {"loss_backward_ms": events[0].elapsed_time(events[1]),
+             "adamw_ms": events[1].elapsed_time(events[2])}
+    bound, parts = train_step_bound(cfg, T1_BATCH, T1_SEQ, n_params)
+    steady = float(np.median(secs[1:]))
+    res = {"layers": cfg.n_layers, "params": n_params,
+           "state_gb": n_params * 16 / 1e9, "losses": losses,
+           "grad_norms": gnorms, "step_ms": [x * 1e3 for x in secs],
+           "median_step_ms": steady * 1e3,
+           "tokens_per_s": T1_BATCH * T1_SEQ / steady,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "bound_ms": bound, "bound_parts": parts, "split": split}
+    log(f"  yi_9b, {cfg.n_layers} of 48 layers at full width (d_model "
+        f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab}): {n_params:,} "
+        f"parameters, {res['state_gb']:.2f} GB of float32 parameters, "
+        f"gradients, m and v; batch {T1_BATCH} x {T1_SEQ}, remat, lr {T1_LR}")
+    log(f"  T1 losses {[round(x, 4) for x in losses]}; step ms "
+        f"{[round(x * 1e3, 2) for x in secs]} (first includes warm-up); "
+        f"median of steps 2-{T1_STEPS} {steady * 1e3:.2f} ms "
+        f"({res['tokens_per_s']:.1f} tokens/s); peak "
+        f"{res['peak_gb']:.2f} GB allocated; bound {bound:.2f} ms "
+        f"({parts['bf16_matmul_ms']:.2f} bf16 matmuls, "
+        f"{parts['f32_attention_ms']:.2f} float32 attention, "
+        f"{parts['adamw_bytes_ms']:.2f} AdamW bytes); one more step by "
+        f"CUDA events: loss and backward {split['loss_backward_ms']:.2f} "
+        f"ms, AdamW {split['adamw_ms']:.2f} ms")
+    del state, step, params
+    lm_free()
+    return res
+
+
+def _train_losses(out):
+    return {int(ln.split()[1]): float(ln.split("loss=")[1].split()[0])
+            for ln in out.splitlines() if ln.startswith("step")}
+
+
+def run_train_t2():
+    """T2: ``python -m repro_torch.launch.train --arch xlstm_125m`` (full
+    configuration) with checkpoints; the run's last checkpoint is lost,
+    and ``--resume`` continues from step T2_RESUME_AT."""
+    import shutil
+    ckdir = os.path.join(REPO, "build", "t2_ckpt")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    base = ["repro_torch.launch.train", "--arch", "xlstm_125m", "--steps",
+            str(T2_STEPS), "--batch", str(T2_BATCH), "--seq", str(T2_SEQ),
+            "--ckpt-dir", ckdir, "--log-every", "1"]
+    _, out_a, secs_a = run_cli(base + ["--ckpt-every", str(T2_CKPT_EVERY)],
+                               600)
+    full = _train_losses(out_a)
+    assert sorted(full) == list(range(1, T2_STEPS + 1)), out_a
+    assert f"done: {T2_STEPS} steps" in out_a, out_a
+    assert full[T2_STEPS] < full[1], f"T2: loss did not fall: {full}"
+    with open(os.path.join(ckdir, f"step_{T2_RESUME_AT:08d}",
+                           "manifest.json")) as f:
+        cursor = json.load(f)["extra"]["pipeline"]
+    assert cursor == {"seed": 0, "step": T2_RESUME_AT}, cursor
+    shutil.rmtree(os.path.join(ckdir, f"step_{T2_STEPS:08d}"))
+    _, out_b, secs_b = run_cli(base + ["--resume"], 600)
+    assert out_b.splitlines()[0] == f"resumed from step {T2_RESUME_AT}", out_b
+    resumed = _train_losses(out_b)
+    assert sorted(resumed) == list(range(T2_RESUME_AT + 1, T2_STEPS + 1))
+    assert resumed[T2_RESUME_AT + 1] == full[T2_RESUME_AT + 1], (resumed,
+                                                                 full)
+    gaps = [abs(resumed[i] - full[i]) for i in resumed]
+    assert max(gaps) <= T2_RESUME_TOL, gaps
+    with open(os.path.join(ckdir, f"step_{T2_STEPS:08d}",
+                           "manifest.json")) as f:
+        end = json.load(f)["extra"]["pipeline"]
+    assert end == {"seed": 0, "step": T2_STEPS}, end
+    times = [float(ln.split("(")[1].split("s/step")[0])
+             for ln in out_a.splitlines() if ln.startswith("step")]
+    res = {"first_loss": full[1], "last_loss": full[T2_STEPS],
+           "resumed_losses": [resumed[i] for i in sorted(resumed)],
+           "uninterrupted_losses": [full[i] for i in sorted(resumed)],
+           "max_resume_gap": max(gaps), "run_s": secs_a, "resume_s": secs_b,
+           "s_per_step": times[-1]}
+    log(f"  launch.train --arch xlstm_125m --steps {T2_STEPS} --batch "
+        f"{T2_BATCH} --seq {T2_SEQ} --ckpt-every {T2_CKPT_EVERY}: "
+        f"{secs_a:.1f} s, loss {full[1]:.4f} -> {full[T2_STEPS]:.4f}, "
+        f"{times[-1]:.3f} s/step (mean over the run); step {T2_STEPS}'s "
+        f"checkpoint removed, --resume: {secs_b:.1f} s, resumed from step "
+        f"{T2_RESUME_AT} with pipeline cursor {cursor['step']}, steps "
+        f"{T2_RESUME_AT + 1}-{T2_STEPS} against the uninterrupted run: "
+        f"first equal, max gap {max(gaps):.4f} (bound {T2_RESUME_TOL}); "
+        f"final cursor {end['step']}")
+    return res
+
+
+def run_train_t3(configs, registry, pipeline, loop, optimizer, dev):
+    """T3: the ten reduced configs in float32, the loss's gradients and
+    one make_train_step step on the card and on the CPU from the same
+    weights."""
+    assert not torch.backends.cuda.matmul.allow_tf32, \
+        "float32 checks need TF32 off for matmuls"
+    ocfg = optimizer.OptConfig(lr=T3_LR, warmup_steps=1, total_steps=6)
+    results = {}
+    for arch in configs.ARCHS:
+        cfg = replace(configs.get_reduced(arch), dtype="float32")
+        m = registry.get_model(cfg)
+        b = train_pipe(pipeline, registry, cfg, 2, 16).next()
+        out = []
+        for d in (torch.device("cpu"), dev):
+            params = loop.init_train_state(cfg, SEED, "cpu")["params"].to(d)
+            state = {"params": params,
+                     "opt": optimizer.init_opt_state(params),
+                     "step": torch.zeros((), dtype=torch.int32, device=d)}
+            batch = {k: torch.as_tensor(v).to(d) for k, v in b.items()}
+            batch = {k: v.long() if v.dtype == torch.int32 else v
+                     for k, v in batch.items()}
+            m.loss_fn(params, batch, cfg, remat=True).backward()
+            grads = [(p.grad if p.grad is not None
+                      else torch.zeros_like(p)).cpu()
+                     for p in params.parameters()]
+            params.zero_grad(set_to_none=True)
+            state, met = loop.make_train_step(cfg, ocfg)(state, batch)
+            out.append((float(met["loss"]), float(met["grad_norm"]), grads,
+                        [p.detach().cpu() for p in
+                         state["params"].parameters()]))
+        (l0, n0, g0, p0), (l1, n1, g1, p1) = out
+        floor = T3_GRAD_REL * max(float(g.abs().max()) for g in g0)
+        r = {"loss": l1, "loss_gap": abs(l1 - l0) / abs(l0),
+             "grad_norm_gap": abs(n1 - n0) / abs(n0),
+             "grad_gap": max(float((a - b).abs().max())
+                             / max(float(a.abs().max()), floor)
+                             for a, b in zip(g0, g1)),
+             "param_gap_lr": max(float((a - b).abs().max())
+                                 for a, b in zip(p0, p1)) / T3_LR}
+        assert r["loss_gap"] < T3_LOSS_REL and \
+            r["grad_norm_gap"] < T3_LOSS_REL, (arch, r)
+        assert r["grad_gap"] < T3_GRAD_REL, (arch, r)
+        assert r["param_gap_lr"] <= T3_STEP_FRAC, (arch, r)
+        results[arch] = r
+    log("  card against CPU, [loss, grad norm, gradient leaf, parameter "
+        "after a step]: " + json.dumps(
+            {a: [float(f"{r[k]:.3g}") for k in ("loss_gap", "grad_norm_gap",
+                                               "grad_gap", "param_gap_lr")]
+             for a, r in results.items()}) + f" (bounds {T3_LOSS_REL} "
+        f"relative, {T3_LOSS_REL} relative, {T3_GRAD_REL} of the leaf's "
+        f"max-abs, {T3_STEP_FRAC} lr)")
+    return results
+
+
+def run_train_t4(configs, loop, optimizer, secure_agg, admm, mesh,
+                 make_lasso, dev):
+    """T4: the Gamma-compressed DP step (bits 8, error feedback) and SPMD
+    ADMM on a one-rank NCCL process group on the card."""
+    import torch.distributed as dist
+    res = {}
+    with mesh.process_group(dev, 1, 0) as group:
+        assert dist.get_backend(group) == "nccl", dist.get_backend(group)
+        cfg = replace(configs.get_reduced("yi_9b"), dtype="float32")
+        step = loop.make_dp_compressed_step(
+            cfg, optimizer.OptConfig(lr=5e-3, warmup_steps=1,
+                                     total_steps=20), group,
+            secure_agg.CompressionConfig(bits=8, enabled=True,
+                                         error_feedback=True))
+        state = loop.init_dp_state(cfg, SEED, dev)
+        rng = np.random.default_rng(0)
+        batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab, (4, 16)),
+                                    device=dev)
+                 for k in ("tokens", "labels")}
+        losses = []
+        for _ in range(8):
+            state, met = step(state, batch)
+            losses.append(float(met["loss"]))
+        assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+        res["dp_losses"] = losses
+        inst = make_lasso(40, 160, 0.05, 0.01, seed=1)
+        cpu_group = dist.new_group(ranks=[0], backend="gloo")
+        for coupled in (False, True):
+            acfg = admm.ADMMConfig(lam=0.05, iters=100, coupled=coupled)
+            x, objs = admm.make_spmd_admm(group, acfg, 1)(
+                torch.as_tensor(inst.A, device=dev), inst.y)
+            assert x.device.type == dev.type
+            xc, oc = admm.make_spmd_admm(cpu_group, acfg, 1)(inst.A, inst.y)
+            gap = max(float((x.cpu() - xc).abs().max()),
+                      float((objs.cpu() - oc).abs().max()
+                            / oc.abs().max()))
+            assert gap < T4_ADMM_TOL, (coupled, gap)
+            res[f"admm_{'coupled' if coupled else 'uncoupled'}_gap"] = gap
+        dist.destroy_process_group(cpu_group)
+    assert not dist.is_initialized()
+    log(f"  make_dp_compressed_step on NCCL (1 rank), bits 8, error "
+        f"feedback, reduced yi_9b: losses {[round(x, 4) for x in losses]}; "
+        f"make_spmd_admm (float64, 100 iterations) against its gloo run on "
+        f"the CPU: uncoupled {res['admm_uncoupled_gap']:.3g}, coupled "
+        f"{res['admm_coupled_gap']:.3g} (bound {T4_ADMM_TOL}); group torn "
+        f"down")
+    return res
+
+
+def run_train_phase(dev):
+    from repro_torch import configs
+    from repro_torch.core import admm, secure_agg
+    from repro_torch.data import pipeline
+    from repro_torch.data.synthetic import make_lasso
+    from repro_torch.launch import mesh
+    from repro_torch.models import registry
+    from repro_torch.train import loop, optimizer
+    t0 = time.perf_counter()
+    tr = {}
+    log(f"train T1: yi_9b at full width, {T1_LAYERS} layers, "
+        f"make_train_step:")
+    tr["t1"] = run_train_t1(configs, registry, pipeline, loop, optimizer,
+                            dev)
+    log("train T2: python -m repro_torch.launch.train --arch xlstm_125m, "
+        "then --resume:")
+    tr["t2"] = run_train_t2()
+    log("train T3: the ten reduced configs in float32, one step, card "
+        "against CPU:")
+    tr["t3"] = run_train_t3(configs, registry, pipeline, loop, optimizer,
+                            dev)
+    log("train T4: the compressed DP step and SPMD ADMM on NCCL:")
+    tr["t4"] = run_train_t4(configs, loop, optimizer, secure_agg, admm,
+                            mesh, make_lasso, dev)
+    tr["phase_s"] = time.perf_counter() - t0
+    log(f"  train phase: {tr['phase_s']:.1f} s")
+    return tr
+
+
 def main():
     require_card()
     sys.path.insert(0, os.path.join(REPO, "src"))
@@ -2580,6 +2919,10 @@ def main():
     # the LM serving stack, after every earlier phase
     lm = run_lm_phase(dev)
     log("lm: " + json.dumps(lm))
+
+    # LM training, after every earlier phase
+    train = run_train_phase(dev)
+    log("train: " + json.dumps(train))
 
     log(f"script: {time.perf_counter() - t_start:.1f} s")
 

@@ -7,7 +7,10 @@ fields as Python ints (``dataclasses.asdict`` of a
 reference limb arrays (numpy int32 ``(B, L16)``, as ``bigint.from_ints``,
 ``ModulusPack`` and ``CipherTensor.limbs`` hold them) into port tensors;
 ``lm_params_from_numpy`` builds a language model of ``repro_torch.models``
-from the reference's parameter pytree as numpy arrays.  None imports the
+from the reference's parameter pytree as numpy arrays, and
+``train_state_from_numpy`` a train state from the reference's (as
+``repro.train.checkpoint.save`` writes it; read it back with
+``repro_torch.train.checkpoint.load_tree``).  None imports the
 reference: callers hand over plain data.
 """
 from __future__ import annotations
@@ -41,10 +44,6 @@ def limbs_from_numpy(arr, device=None) -> torch.Tensor:
     return torch.as_tensor(a.astype(np.int32), device=resolve_device(device))
 
 
-#: reference subtrees whose leaves stack the layers along axis 0
-_STACKED = ("layers", "enc", "dec")
-
-
 def _flatten(tree, prefix=""):
     """Dotted leaf names of a nested dict/list tree (list items by index)."""
     if isinstance(tree, dict):
@@ -62,7 +61,7 @@ def _flatten(tree, prefix=""):
 def _unstack(tree: dict) -> dict:
     """The reference's stacked layer subtrees as lists of per-layer trees."""
     out = dict(tree)
-    for name in _STACKED:
+    for name in L.STACKED:
         if name in out and isinstance(out[name], dict):
             leaves = _flatten(out[name])
             n = {np.shape(a)[0] if np.ndim(a) else None
@@ -124,3 +123,26 @@ def lm_params_from_numpy(cfg, tree: dict, device=None) -> L.Params:
                              f"expected {tuple(skel.shape)}")
         flat[name] = torch.as_tensor(a.astype(np.float32), device=dev)
     return L.Params(_nest(flat))
+
+
+def train_state_from_numpy(cfg, tree: dict, device=None) -> dict:
+    """The port's train state holding a reference train state.
+
+    ``tree`` is ``{"params", "opt": {"m", "v", "count"}, "step"}`` with
+    numpy (or CPU tensor) leaves, the stacked ``layers``/``enc``/``dec``
+    subtrees as the reference keeps them.  Parameters come back
+    trainable, ``m`` and ``v`` as trees of the same structure, ``count``
+    and ``step`` as int32 scalars; the next train step of either package
+    then starts from the same numbers.
+    """
+    dev = resolve_device(device)
+    params = lm_params_from_numpy(cfg, tree["params"], dev)
+    params.requires_grad_(True)
+
+    def scalar(a):
+        return torch.as_tensor(np.asarray(a).astype(np.int32), device=dev)
+    return {"params": params,
+            "opt": {"m": lm_params_from_numpy(cfg, tree["opt"]["m"], dev),
+                    "v": lm_params_from_numpy(cfg, tree["opt"]["v"], dev),
+                    "count": scalar(tree["opt"]["count"])},
+            "step": scalar(tree["step"])}

@@ -1,8 +1,9 @@
 """ADMM LASSO solvers: centralized, distributed (paper eq. 10), the coupled
 consensus variant (beyond the paper), and the DP-ADMM baseline.
 
-Port of ``repro.core.admm``'s single-host solvers (the reference's
-``shard_map`` form, one mesh device per edge, is not ported).  Float64
+Port of ``repro.core.admm``: the single-host solvers, and
+:func:`make_spmd_admm`, the reference's ``shard_map`` form with one rank
+of a ``torch.distributed`` process group per edge.  Float64
 linear algebra in eager torch on the tensors' device (the host for numpy
 input), as the reference ran it in JAX x64: ``torch.linalg.inv``,
 ``einsum`` and a Python loop for ``lax.scan``.  The inverses and contractions round differently
@@ -20,6 +21,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .quantization import flush_subnormal
 
@@ -183,3 +185,50 @@ def dp_admm(A, y, K: int, cfg: ADMMConfig, sigma: float,
         x, z = x_new, z_new
         hist.append(x.reshape(N))
     return x.reshape(N), _stack(hist, N, A)
+
+
+# ---------------------------------------------------------------------------
+# SPMD distributed ADMM: one rank of a process group per edge node
+# ---------------------------------------------------------------------------
+
+def make_spmd_admm(group, cfg: ADMMConfig, K: int):
+    """The reference's ``make_spmd_admm`` over ``group``, one rank per edge.
+
+    Returns ``run(A_k, y) -> (x_k, objs)``: each rank passes its column
+    block ``A_k`` (M, N/K) and the shared ``y``, and gets its slice of x
+    and the objective after every iteration (float64, on ``A_k``'s
+    device).  The uncoupled (paper) form exchanges nothing but the
+    diagnostics; the coupled form all-reduces the partial products
+    ``A_k x`` once per iteration.
+    """
+    def allsum(t):
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+        return t
+
+    def run(Ak, y):
+        Ak = _f64(Ak)
+        y = _f64(y).to(Ak.device)
+        Nk = Ak.shape[1]
+        Bk = torch.linalg.inv(Ak.T @ Ak + cfg.rho * torch.eye(
+            Nk, dtype=Ak.dtype, device=Ak.device))
+        ys = y / K if cfg.y_scale == "consistent" else y
+        AkTy = Ak.T @ ys
+        x = z = v = torch.zeros(Nk, dtype=Ak.dtype, device=Ak.device)
+        objs = []
+        for _ in range(cfg.iters):
+            if cfg.coupled:
+                s = allsum(Ak @ x)
+                r = Ak @ x + (y - s) / K     # damped Jacobi share
+                x_new = Bk @ (Ak.T @ r + cfg.rho * (z - v))
+            else:
+                x_new = Bk @ (AkTy + cfg.rho * (z - v))
+            z_new = soft_threshold(v + x, cfg.lam / cfg.rho)
+            v_new = v + x - z_new
+            # global diagnostics: objective pieces
+            res = allsum(Ak @ x_new)
+            l1 = allsum(torch.sum(torch.abs(x_new)).reshape(1))[0]
+            objs.append(0.5 * torch.sum((y - res) ** 2) + cfg.lam * l1)
+            x, z, v = x_new, z_new, v_new
+        return x, _stack(objs, 0, Ak).reshape(-1)
+
+    return run

@@ -5,8 +5,8 @@ same seed gives the same numpy data.
   controllable sparsity.
 * Power-network reconstruction (§V-C): sparse admittance graph, voltage
   observations, per-bus LASSO instances.
-
-(``token_batch``, the LM stack's token streams, arrives with that slice.)
+* Token streams for the LM trainer (``token_batch``): a deterministic
+  function of (seed, step), so a resumed run replays the same batches.
 """
 from __future__ import annotations
 
@@ -76,3 +76,22 @@ def bus_lasso(net: PowerNetwork, bus: int) -> LassoInstance:
     d_true[bus] = net.admittance[bus].sum()           # Laplacian diagonal
     S = net.currents[:, bus]
     return LassoInstance(A=phi, y=S, x_true=d_true)
+
+
+# ---------------------------------------------------------------------------
+# Token streams
+# ---------------------------------------------------------------------------
+
+def token_batch(vocab: int, batch: int, seq: int, step: int, seed: int = 0):
+    """Deterministic synthetic LM batch for a given step (resumable)."""
+    rng = np.random.default_rng(np.random.SeedSequence([seed, step]))
+    ranks = np.arange(1, vocab + 1, dtype=np.float64)
+    probs = 1.0 / ranks
+    probs /= probs.sum()
+    toks = rng.choice(vocab, size=(batch, seq + 1), p=probs)
+    # inject learnable bigram structure: even tokens followed by tok+1
+    mask = (toks[:, :-1] % 2 == 0) & (rng.random((batch, seq)) < 0.7)
+    shifted = np.minimum(toks[:, :-1] + 1, vocab - 1)
+    toks[:, 1:] = np.where(mask, shifted, toks[:, 1:])
+    return {"tokens": toks[:, :-1].astype(np.int32),
+            "labels": toks[:, 1:].astype(np.int32)}

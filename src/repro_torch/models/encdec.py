@@ -51,17 +51,22 @@ def init_params(cfg, seed: int = 0, device=None) -> L.Params:
     return L.Params(param_tree(cfg, L.make_init(device, seed)))
 
 
-def encode(params, frames, cfg, **_):
-    """frames: (B, S_enc, d) precomputed frontend embeddings."""
+def _enc_block(lp, x, cfg, positions):
+    hn = L.rms_norm(x, lp["ln_attn"], cfg.norm_eps)
+    q, k, v = L.qkv_proj(lp["attn"], hn, cfg, positions)
+    o = L.attention(q, k, v, causal=False)
+    x = x + L.attn_out(lp["attn"], o, cfg)
+    hn = L.rms_norm(x, lp["ln_mlp"], cfg.norm_eps)
+    return x + L.mlp(lp["mlp"], hn, cfg.act)
+
+
+def encode(params, frames, cfg, use_scan=True, remat=False, **_):
+    """frames: (B, S_enc, d) precomputed frontend embeddings.
+    ``use_scan`` changes no number (the layers are a list)."""
     x = frames.to(L.cdtype(cfg))
     positions = torch.arange(x.shape[1], device=x.device)[None]
     for lp in params["enc"]:
-        hn = L.rms_norm(x, lp["ln_attn"], cfg.norm_eps)
-        q, k, v = L.qkv_proj(lp["attn"], hn, cfg, positions)
-        o = L.attention(q, k, v, causal=False)
-        x = x + L.attn_out(lp["attn"], o, cfg)
-        hn = L.rms_norm(x, lp["ln_mlp"], cfg.norm_eps)
-        x = x + L.mlp(lp["mlp"], hn, cfg.act)
+        x = L.remat_call(_enc_block, remat, lp, x, cfg, positions)
     return L.rms_norm(x, params["ln_enc"], cfg.norm_eps)
 
 
@@ -74,6 +79,7 @@ def _cross_kv(lp, memory, cfg):
 
 
 def _dec_block(lp, h, ck, cv, cfg, positions, kv_out=None):
+    """One decoder block against cross K/V ``ck``/``cv``."""
     hn = L.rms_norm(h, lp["ln_self"], cfg.norm_eps)
     q, k, v = L.qkv_proj(lp["self_attn"], hn, cfg, positions)
     if kv_out is not None:
@@ -88,14 +94,19 @@ def _dec_block(lp, h, ck, cv, cfg, positions, kv_out=None):
     return h + L.mlp(lp["mlp"], hn, cfg.act)
 
 
-def forward(params, tokens, cfg, *, frames=None, **_):
+def _dec_layer(lp, x, memory, cfg, positions):
+    ck, cv = _cross_kv(lp, memory, cfg)
+    return _dec_block(lp, x, ck, cv, cfg, positions)
+
+
+def forward(params, tokens, cfg, *, frames=None, use_scan=True, remat=False,
+            **_):
     """Training forward: frames -> encoder; tokens -> decoder; logits."""
-    memory = encode(params, frames, cfg)
+    memory = encode(params, frames, cfg, use_scan, remat)
     x = L.embed(params, tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=x.device)[None]
     for lp in params["dec"]:
-        ck, cv = _cross_kv(lp, memory, cfg)
-        x = _dec_block(lp, x, ck, cv, cfg, positions)
+        x = L.remat_call(_dec_layer, remat, lp, x, memory, cfg, positions)
     return L.head_logits(params, x, cfg)
 
 

@@ -162,11 +162,11 @@ def init_params(cfg, seed: int = 0, device=None) -> L.Params:
     return L.Params(param_tree(cfg, L.make_init(device, seed)))
 
 
-def forward(params, tokens, cfg, **_):
+def forward(params, tokens, cfg, *, remat=False, **_):
     x = L.embed(params, tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=x.device)[None]
     for i, bp in enumerate(params["blocks"]):
-        x = block_forward(bp, x, cfg, i, positions)
+        x = L.remat_call(block_forward, remat, bp, x, cfg, i, positions)
     return L.head_logits(params, x, cfg)
 
 

@@ -8,7 +8,9 @@ config's compute dtype (``cdtype``: bfloat16 unless ``cfg.dtype`` is
 ``"float32"``); norms, softmax and RoPE angles run in float32.  A weight
 is cast to the compute dtype where it is used (``Params.w``), or read
 from the copy :meth:`Params.hold` cast once: the cast is exact, so both
-give the same numbers.
+give the same numbers.  A trainable leaf is always cast where it is
+used, so its gradient reaches the float32 master weight.  ``remat_call``
+is the reference's ``jax.checkpoint`` around a block.
 
 Not ported: the reference's ``set_activation_sharding``/``constrain_acts``
 (its ``layers.py:33-55``), hooks for the TPU mesh that do nothing without
@@ -21,6 +23,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 
@@ -31,6 +34,10 @@ ACTS = {
 }
 
 MASK_VALUE = -1e30          # the reference's mask value (not -inf)
+
+#: subtrees the reference stacks along a leading layer axis (the port
+#: keeps them as lists of per-layer trees)
+STACKED = ("layers", "enc", "dec")
 
 
 def cdtype(cfg) -> torch.dtype:
@@ -45,8 +52,9 @@ class Params(nn.Module):
     """A tree of parameters built from a nested dict of tensors.
 
     Dicts become sub-trees, lists ``nn.ModuleList``s of sub-trees, tensors
-    parameters (no gradient: the port serves, it does not train yet).
-    ``p[name]`` and ``name in p`` read it like the reference's pytree.
+    parameters.  Leaves start frozen (the serving path); a trainer makes
+    them trainable with ``requires_grad_()``.  ``p[name]`` and ``name in
+    p`` read it like the reference's pytree.
     """
 
     def __init__(self, tree: dict):
@@ -67,22 +75,35 @@ class Params(nn.Module):
     def __contains__(self, name) -> bool:
         return name in self._parameters or name in self._modules
 
+    def _copy(self, name: str, dtype: torch.dtype):
+        """The held copy of a frozen leaf, else None: a trainable leaf is
+        cast per use, so the graph reaches it and never reads a stale,
+        detached copy."""
+        if self._parameters[name].requires_grad:
+            return None
+        return self._held.get((name, dtype))
+
     def w(self, name: str, dtype: torch.dtype) -> torch.Tensor:
         """Parameter ``name`` in ``dtype``: the held copy, else a cast."""
-        held = self._held.get((name, dtype))
+        held = self._copy(name, dtype)
         return held if held is not None else self._parameters[name].to(dtype)
 
     def take(self, name: str, idx: torch.Tensor, dtype: torch.dtype):
         """Rows ``idx`` of parameter ``name`` in ``dtype`` (the embedding
-        lookup; gathering before the cast gives the same numbers)."""
-        held = self._held.get((name, dtype))
+        lookup; gathering before the cast gives the same numbers, and a
+        trainable table's gradient rows add up in float32)."""
+        held = self._copy(name, dtype)
         if held is not None:
             return held[idx]
         return self._parameters[name][idx].to(dtype)
 
     def hold(self, dtype: torch.dtype) -> "Params":
         """Cast every matrix of the tree to ``dtype`` once and keep the
-        copies beside the float32 parameters (vectors are cast per use)."""
+        copies beside the float32 parameters (vectors are cast per use).
+        Raises on a trainable tree: its copies would go stale."""
+        if any(p.requires_grad for p in self.parameters()):
+            raise ValueError("hold() on trainable parameters: a held copy "
+                             "would not follow the updates")
         for mod in self.modules():
             if isinstance(mod, Params):
                 for name, p in mod._parameters.items():
@@ -90,9 +111,44 @@ class Params(nn.Module):
                         mod._held[(name, dtype)] = p.detach().to(dtype)
         return self
 
+    def tree(self) -> dict:
+        """The nested dict/list of leaf tensors this tree was built from."""
+        out = dict(self._parameters)
+        for name, mod in self._modules.items():
+            out[name] = ([m.tree() for m in mod]
+                         if isinstance(mod, nn.ModuleList) else mod.tree())
+        return out
+
+    def map(self, fn) -> "Params":
+        """A new frozen tree of the same structure with leaves ``fn(p)``."""
+        def go(t):
+            if isinstance(t, dict):
+                return {k: go(v) for k, v in t.items()}
+            if isinstance(t, list):
+                return [go(v) for v in t]
+            return fn(t.detach())
+        return Params(go(self.tree()))
+
+    def ref_ndims(self) -> list:
+        """Each leaf's dimensions as the reference holds it: one more
+        under a stacked layer list (:data:`STACKED`)."""
+        stacked = {n for n in STACKED
+                   if isinstance(self._modules.get(n), nn.ModuleList)}
+        return [p.ndim + (n.split(".")[0] in stacked)
+                for n, p in self.named_parameters()]
+
     @property
     def device(self) -> torch.device:
         return next(self.parameters()).device
+
+
+def remat_call(fn, remat: bool, *args):
+    """``fn(*args)``; with ``remat`` and gradients on, its activations are
+    recomputed in the backward pass instead of kept (the reference's
+    ``jax.checkpoint``; the blocks draw no random numbers)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 class Init:

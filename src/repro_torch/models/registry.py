@@ -6,8 +6,11 @@ returns a namespace of plain functions:
 * ``init(cfg, seed=0, device=None)`` -> :class:`~.layers.Params`, float32
   parameters drawn from a seeded ``torch.Generator`` on ``device``
   (default ``cuda``);
-* ``forward(params, tokens, cfg, **inputs)`` -> float32 logits (B, S, V);
-* ``loss_fn(params, batch, cfg)`` -> mean next-token NLL (forward only);
+* ``forward(params, tokens, cfg, **inputs)`` -> float32 logits (B, S, V)
+  (``remat=True`` recomputes each block in the backward pass; the
+  reference's ``use_scan`` is accepted where it has one);
+* ``loss_fn(params, batch, cfg, **kw)`` -> mean next-token NLL, which a
+  trainer differentiates (``Params.requires_grad_()``);
 * ``init_cache(cfg, batch, max_len, device=None)``;
 * ``prefill(params, tokens, cfg, cache, **inputs)`` -> (last logits, cache);
 * ``decode_step(params, token, cache, cfg)`` -> (logits (B, V), cache).

@@ -4,7 +4,10 @@ Port of ``repro.models.transformer``: GQA + RoPE, optional QKV bias,
 SwiGLU MLP or MoE blocks, KV-cache prefill/decode (bfloat16 cache, or
 int8 with per-position scales), and an optional prefix-embedding input
 for the VLM frontend stub.  Layers are an ``nn.ModuleList`` run one
-after another, where the reference stacks them under ``vmap``/``scan``.
+after another, where the reference stacks them under ``vmap``/``scan``;
+``forward``'s ``use_scan`` is accepted for that reason and changes no
+number, and ``remat`` (on by default, as in the reference) recomputes
+each block's activations in the backward pass.
 
 Caches are state: ``prefill`` and ``decode_step`` write into the cache
 they are given and return it.  ``cache["len"]`` is a Python int.  A
@@ -80,7 +83,8 @@ def _inputs(params, tokens, cfg, prefix_embeds):
     return x
 
 
-def forward(params, tokens, cfg, *, prefix_embeds=None, **_):
+def forward(params, tokens, cfg, *, prefix_embeds=None, use_scan=True,
+            remat=True):
     """tokens (B, S) [+ optional prefix (B, P, d_model)] -> logits.
 
     With a prefix, logits are returned for the S token positions only.
@@ -89,7 +93,7 @@ def forward(params, tokens, cfg, *, prefix_embeds=None, **_):
     P = 0 if prefix_embeds is None else prefix_embeds.shape[1]
     positions = torch.arange(x.shape[1], device=x.device)[None]
     for lp in params["layers"]:
-        x = block(lp, x, cfg, positions)
+        x = L.remat_call(block, remat, lp, x, cfg, positions)
     return L.head_logits(params, x[:, P:], cfg)
 
 
