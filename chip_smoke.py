@@ -135,9 +135,9 @@ package, and:
     1,024 from ``TokenPipeline`` (finite losses, the last below the
     first), with its step time, tokens/s, peak memory, the step's bound
     and one more step split by CUDA events (loss and backward, AdamW); T2, ``python -m repro_torch.launch.train --arch xlstm_125m``
-    (full configuration) for 30 steps with a checkpoint every 10 (the
-    loss falls), then, with step 30's checkpoint removed, ``--resume``
-    from step 20: the pipeline cursor continues, the first resumed loss
+    (full configuration) for 12 steps with a checkpoint every 4 (the
+    loss falls), then, with step 12's checkpoint removed, ``--resume``
+    from step 8: the pipeline cursor continues, the first resumed loss
     equals the uninterrupted run's and the others lie within 1e-2; T3,
     each reduced config in float32 on the card against the CPU from the
     same weights: loss and grad norm within 1e-4 relative, each gradient
@@ -146,15 +146,31 @@ package, and:
     (bits 8, error feedback) for 8 steps on a one-rank NCCL process
     group (the loss falls) and ``make_spmd_admm`` on it against its run
     on a gloo group on the CPU (within 1e-10), the group torn down after;
-14. prints the kernel table as one JSON line (each body's launches on the
+14. runs the 2-D sharding and the dry-run (``launch.mesh``,
+    ``registry.param_pspecs``, DTensor; ``launch.dryrun``): D1, T1's
+    model, weights and batches with parameters and moments as DTensors
+    at ``param_pspecs``'s placements on a 1 x 1 ``("data", "model")``
+    mesh over a one-rank NCCL group, the activation sharding installed,
+    three steps: each loss within 1e-3 relative of T1's unsharded
+    step's and each parameter within 0.5 lr of T1's after three steps,
+    with the step time beside T1's and the peak memory; D2, the
+    dry-run's accounting of T1's step and shapes on a fake one-rank
+    mesh: its predicted peak within 15 % of T1's measured peak, and its
+    counted bf16 matmul flops within 3 % of ``train_step_bound``'s;
+    D3, ``python -m repro_torch.launch.dryrun --arch yi_9b`` (four
+    shapes on the fake 16 x 16 mesh, ``long_500k`` skipped) and
+    ``--arch qwen2_moe_a27b --shape train_4k`` as two subprocesses run
+    side by side: every cell ok or skipped, each cell's peak per card
+    beside the H100's 80 GB, its bottleneck and its three terms;
+15. prints the kernel table as one JSON line (each body's launches on the
     main path — for the per-row bodies on S1 — on the Barrett arm and on
-    each path of steps 9, 10 and 11; the LM stack, serving and
-    training, has no kernel of its own), then as its last line
+    each path of steps 9, 10 and 11; the LM stack, serving, training
+    and sharding have no kernel of their own), then as its last line
     ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
 result.  Exact integer work: the tolerance of every comparison is zero;
-the LM checks' tolerances are stated in steps 12 and 13.
+the LM checks' tolerances are stated in steps 12, 13 and 14.
 """
 import contextlib
 import dataclasses
@@ -2459,7 +2475,7 @@ def run_lm_phase(dev):
 T1_LAYERS, T1_BATCH, T1_SEQ, T1_STEPS, T1_LR = 8, 4, 1024, 6, 3e-6
 #: T2: launch.train on xlstm_125m's full configuration: T2_STEPS steps
 #: with a checkpoint every T2_CKPT_EVERY, then --resume from T2_RESUME_AT
-T2_STEPS, T2_BATCH, T2_SEQ, T2_CKPT_EVERY, T2_RESUME_AT = 30, 8, 256, 10, 20
+T2_STEPS, T2_BATCH, T2_SEQ, T2_CKPT_EVERY, T2_RESUME_AT = 12, 8, 256, 4, 8
 #: T2: a resumed step's loss against the uninterrupted run's (the first
 #: resumed step is a forward from the same weights: equal to the printed
 #: digits; later steps carry the card's atomics' rounding in the
@@ -2484,13 +2500,17 @@ def train_step_bound(cfg, B, S, n_params):
     recomputed forward, backward twice the forward) over 989 TFLOP/s, its
     float32 attention scores and weighted sums (``attention_naive``:
     every (query, key) pair, masked or not) over 67 TFLOP/s, and AdamW's
-    28 bytes a parameter (read p, g, m, v; write p, m, v) over HBM."""
+    28 bytes a parameter (read p, g, m, v; write p, m, v) over HBM.  The
+    recomputation stops once it has every tensor the backward saved
+    (``torch.utils.checkpoint``'s early stop), so a block's last matmul,
+    ``w_down``, is not run again."""
     d, hd, H, KV, ff = cfg.d_model, cfg.hd, cfg.q_heads, cfg.n_kv, cfg.d_ff
     T = B * S
     layer = 2 * T * (d * H * hd + 2 * d * KV * hd + H * hd * d + 3 * d * ff)
     head = 2 * T * d * cfg.padded_vocab
     fwd = cfg.n_layers * layer + head
-    mm_flops = fwd + cfg.n_layers * layer + 2 * fwd
+    recompute = cfg.n_layers * (layer - 2 * T * ff * d)
+    mm_flops = fwd + recompute + 2 * fwd
     attn_fwd = cfg.n_layers * 2 * (2 * B * H * S * S * hd)
     attn_flops = 4 * attn_fwd
     adam_bytes = 28 * n_params
@@ -2523,7 +2543,7 @@ def run_train_t1(configs, registry, pipeline, loop, optimizer, dev):
     step = loop.make_train_step(cfg, ocfg, remat=True)
     pipe = train_pipe(pipeline, registry, cfg, T1_BATCH, T1_SEQ)
     losses, gnorms, secs = [], [], []
-    for _ in range(T1_STEPS):
+    for i in range(T1_STEPS):
         batch = pipe.next(device=dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2532,6 +2552,9 @@ def run_train_t1(configs, registry, pipeline, loop, optimizer, dev):
         secs.append(time.perf_counter() - t0)
         losses.append(float(met["loss"]))
         gnorms.append(float(met["grad_norm"]))
+        if i + 1 == D1_STEPS:              # D1's reference, on the host
+            snapshot = [p.detach().to("cpu", copy=True) for p in
+                        state["params"].parameters()]
     assert all(np.isfinite(losses)) and all(np.isfinite(gnorms)), losses
     assert losses[-1] < losses[0], f"T1: loss did not fall: {losses}"
     # one more step split by CUDA events: loss and backward, then AdamW
@@ -2557,7 +2580,8 @@ def run_train_t1(configs, registry, pipeline, loop, optimizer, dev):
            "median_step_ms": steady * 1e3,
            "tokens_per_s": T1_BATCH * T1_SEQ / steady,
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "bound_ms": bound, "bound_parts": parts, "split": split}
+           "bound_ms": bound, "bound_parts": parts, "split": split,
+           "snapshot": snapshot}
     log(f"  yi_9b, {cfg.n_layers} of 48 layers at full width (d_model "
         f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab}): {n_params:,} "
         f"parameters, {res['state_gb']:.2f} GB of float32 parameters, "
@@ -2763,7 +2787,208 @@ def run_train_phase(dev):
                             mesh, make_lasso, dev)
     tr["phase_s"] = time.perf_counter() - t0
     log(f"  train phase: {tr['phase_s']:.1f} s")
-    return tr
+    return tr, tr["t1"].pop("snapshot")
+
+
+# ---------------------------------------------------------------------------
+# 2-D sharding and the dry-run: DTensor parameters at param_pspecs's
+# placements, and launch.dryrun on a fake process group (plain PyTorch
+# and torch.distributed; no kernel)
+# ---------------------------------------------------------------------------
+
+#: D1: T1's first steps on a 1 x 1 mesh: loss relative to T1's, and each
+#: parameter after them in units of T1's peak lr (T3's bound)
+D1_STEPS, D1_LOSS_REL, D1_STEP_FRAC = 3, 1e-3, 0.5
+#: D2: the dry-run's predicted peak against T1's measured one, and its
+#: counted bf16 matmul flops against train_step_bound's
+D2_PEAK_REL, D2_FLOPS_REL = 0.15, 0.03
+#: D3: the production dry-run's subprocesses and their time limit (s)
+D3_RUNS = {"yi_9b": ["--arch", "yi_9b"],
+           "qwen2_moe_a27b": ["--arch", "qwen2_moe_a27b", "--shape",
+                              "train_4k"]}
+D3_TIMEOUT = 600
+H100_GB = 80
+
+
+def run_shard_d1(configs, registry, pipeline, loop, optimizer, mesh, L,
+                 t1, snapshot, dev):
+    """D1: T1's model, weights and batches as DTensors on a 1 x 1
+    ("data", "model") mesh over a one-rank NCCL group, D1_STEPS steps."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+    cfg = replace(configs.get_config("yi_9b"), n_layers=T1_LAYERS)
+    ocfg = optimizer.OptConfig(lr=T1_LR, warmup_steps=1,
+                               total_steps=T1_STEPS)
+    with mesh.process_group(dev, 1, 0) as group:
+        assert dist.get_backend(group) == "nccl", dist.get_backend(group)
+        dmesh = mesh.make_mesh((1, 1), ("data", "model"), dev)
+        state = loop.init_train_state(cfg, SEED, dev)
+        specs = registry.param_pspecs(cfg, state["params"],
+                                      mesh.mesh_shape_dict(dmesh))
+        state = loop.shard_train_state(state, dmesh, specs)
+        lm_free()
+        torch.cuda.reset_peak_memory_stats()
+        L.set_activation_sharding(dmesh, [Shard(0), Shard(2)])
+        try:
+            step = loop.make_train_step(cfg, ocfg, remat=True)
+            pipe = train_pipe(pipeline, registry, cfg, T1_BATCH, T1_SEQ)
+            losses, secs = [], []
+            for _ in range(D1_STEPS):
+                batch = pipe.next(device=dev, mesh=dmesh)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, met = step(state, batch)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                losses.append(float(met["loss"]))
+        finally:
+            L.set_activation_sharding(None)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        wq = state["params"]["layers"][0]["attn"]["wq"]
+        placements = [str(p) for p in wq.placements]
+        param_gap = max(
+            float((p.detach().to_local().cpu() - ref).abs().max())
+            for p, ref in zip(state["params"].parameters(), snapshot))
+        del state, step
+    lm_free()
+    loss_gaps = [abs(a - b) / abs(b) for a, b in zip(losses, t1["losses"])]
+    res = {"losses": losses, "t1_losses": t1["losses"][:D1_STEPS],
+           "loss_gap_rel": max(loss_gaps), "param_gap_lr": param_gap / T1_LR,
+           "step_ms": [x * 1e3 for x in secs],
+           "median_step_ms": float(np.median(secs[1:])) * 1e3,
+           "t1_median_step_ms": t1["median_step_ms"], "peak_gb": peak,
+           "wq_placements": placements}
+    log(f"  yi_9b, {T1_LAYERS} layers, batch {T1_BATCH} x {T1_SEQ}, on a "
+        f"1 x 1 mesh (wq at {placements}): losses "
+        f"{[round(x, 5) for x in losses]} against T1's "
+        f"{[round(x, 5) for x in res['t1_losses']]}: largest gap "
+        f"{res['loss_gap_rel']:.3g} relative (bound {D1_LOSS_REL}); "
+        f"parameters after {D1_STEPS} steps within "
+        f"{res['param_gap_lr']:.3g} lr of T1's (bound {D1_STEP_FRAC}); "
+        f"step ms {[round(x * 1e3, 1) for x in secs]} (first includes "
+        f"DTensor's sharding propagation), median of steps 2-{D1_STEPS} "
+        f"{res['median_step_ms']:.1f} ms against T1's "
+        f"{t1['median_step_ms']:.1f} ms; peak {peak:.2f} GB allocated")
+    assert res["loss_gap_rel"] <= D1_LOSS_REL, res
+    assert res["param_gap_lr"] <= D1_STEP_FRAC, res
+    return res
+
+
+def run_shard_d2(configs, mesh, dryrun, t1):
+    """D2: the dry-run's accounting of T1's step (T1's model, batch and
+    sequence, remat, no accumulation) on a fake one-rank mesh."""
+    cfg = replace(configs.get_config("yi_9b"), n_layers=T1_LAYERS)
+    t0 = time.perf_counter()
+    with mesh.fake_group(1):
+        dmesh = mesh.make_mesh((1, 1), ("data", "model"), "cuda")
+        e = dryrun.run_cell("yi_9b", "t1", dmesh, report={}, cfg=cfg,
+                            shape=dict(kind="train", seq=T1_SEQ,
+                                       batch=T1_BATCH), accum=1)
+    assert e["status"] == "ok", e
+    peak = e["memory"]["peak_bytes_per_dev"] / 1e9
+    flops = e["flops_by_dtype"]["bfloat16"] / 1e12
+    bound = t1["bound_parts"]["bf16_tflop"]
+    res = {"predicted_peak_gb": peak, "t1_peak_gb": t1["peak_gb"],
+           "peak_gap_rel": abs(peak - t1["peak_gb"]) / t1["peak_gb"],
+           "counted_bf16_tflop": flops, "bound_bf16_tflop": bound,
+           "flops_gap_rel": abs(flops - bound) / bound,
+           "flops_by_dtype": e["flops_by_dtype"],
+           "bytes_per_dev": e["bytes_per_dev"],
+           "roofline": e["roofline"], "s": time.perf_counter() - t0}
+    log(f"  predicted peak {peak:.2f} GB against T1's measured "
+        f"{t1['peak_gb']:.2f} GB (gap {res['peak_gap_rel']:.3g}, bound "
+        f"{D2_PEAK_REL}); counted bf16 matmuls {flops:.3f} TFLOP against "
+        f"train_step_bound's {bound:.3f} (gap {res['flops_gap_rel']:.3g}, "
+        f"bound {D2_FLOPS_REL}); float32 "
+        f"{e['flops_by_dtype'].get('float32', 0) / 1e12:.3f} TFLOP; "
+        f"{res['s']:.1f} s")
+    assert res["peak_gap_rel"] <= D2_PEAK_REL, res
+    assert res["flops_gap_rel"] <= D2_FLOPS_REL, res
+    return res
+
+
+def run_shard_d3():
+    """D3: ``python -m repro_torch.launch.dryrun`` on the fake 16 x 16
+    mesh, D3_RUNS side by side; every process is stopped on the way
+    out."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    outs = {name: os.path.join(REPO, "build", f"dryrun_{name}.json")
+            for name in D3_RUNS}
+    t0 = time.perf_counter()
+    procs = {}
+    try:
+        for name, args in D3_RUNS.items():
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+                 "--out", outs[name]], stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True, env=env, cwd=REPO)
+        done = {name: p.communicate(timeout=D3_TIMEOUT)
+                for name, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    secs = time.perf_counter() - t0
+    cells = {}
+    for name, p in procs.items():
+        assert p.returncode == 0, (
+            f"dryrun {name} exited {p.returncode}:\n"
+            f"{done[name][0][-3000:]}\n{done[name][1][-3000:]}")
+        with open(outs[name]) as f:
+            cells.update(json.load(f))
+    bad = {k: v for k, v in cells.items()
+           if v["status"] not in ("ok", "skipped")}
+    assert not bad, bad
+    assert cells["qwen2_moe_a27b/train_4k/16x16"]["collectives"][
+        "counts"].get("all-gather"), "expert parallelism recorded nothing"
+    res = {"s": secs, "cells": {}}
+    for key, v in cells.items():
+        if v["status"] != "ok":
+            res["cells"][key] = v
+            log(f"  {key}: skipped ({v['reason']})")
+            continue
+        rl = v["roofline"]
+        res["cells"][key] = {
+            "peak_gb_per_dev": v["memory"]["peak_bytes_per_dev"] / 1e9,
+            "bottleneck": rl["bottleneck"], "t_compute": rl["t_compute"],
+            "t_memory": rl["t_memory"], "t_collective": rl["t_collective"],
+            "flops_per_dev": v["flops_per_dev"],
+            "bytes_per_dev": v["bytes_per_dev"],
+            "coll_bytes_per_dev": v["coll_bytes_per_dev"],
+            "collectives": v["collectives"]["counts"],
+            "useful_ratio": rl["useful_ratio"], "run_s": v["run_s"]}
+        c = res["cells"][key]
+        log(f"  {key}: peak {c['peak_gb_per_dev']:.2f} GB per card (H100: "
+            f"{H100_GB} GB), {c['bottleneck']}-bound: compute "
+            f"{c['t_compute']:.4g} s, memory {c['t_memory']:.4g} s, "
+            f"collective {c['t_collective']:.4g} s; collectives "
+            f"{c['collectives']}; run {c['run_s']} s")
+    log(f"  two dry-run subprocesses side by side: {secs:.1f} s")
+    return res
+
+
+def run_shard_phase(dev, t1, snapshot):
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+    from repro_torch.launch import dryrun, mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import registry
+    from repro_torch.train import loop, optimizer
+    t0 = time.perf_counter()
+    sh = {}
+    log(f"shard D1: T1's step with DTensor parameters on a 1 x 1 mesh, "
+        f"{D1_STEPS} steps against T1's:")
+    sh["d1"] = run_shard_d1(configs, registry, pipeline, loop, optimizer,
+                            mesh, L, t1, snapshot, dev)
+    log("shard D2: the dry-run's accounting of T1's step against T1:")
+    sh["d2"] = run_shard_d2(configs, mesh, dryrun, t1)
+    log("shard D3: python -m repro_torch.launch.dryrun --arch yi_9b, and "
+        "--arch qwen2_moe_a27b --shape train_4k, on the fake 16 x 16 mesh:")
+    sh["d3"] = run_shard_d3()
+    sh["phase_s"] = time.perf_counter() - t0
+    log(f"  shard phase: {sh['phase_s']:.1f} s")
+    return sh
 
 
 def main():
@@ -2921,8 +3146,13 @@ def main():
     log("lm: " + json.dumps(lm))
 
     # LM training, after every earlier phase
-    train = run_train_phase(dev)
+    train, t1_snapshot = run_train_phase(dev)
     log("train: " + json.dumps(train))
+
+    # the 2-D sharding and the dry-run, after every earlier phase
+    shard = run_shard_phase(dev, train["t1"], t1_snapshot)
+    del t1_snapshot
+    log("shard: " + json.dumps(shard))
 
     log(f"script: {time.perf_counter() - t_start:.1f} s")
 

@@ -1,16 +1,161 @@
-"""Limb-op roofline for the encrypted ADMM stack (RunReport ``runtime``).
+"""Three-term roofline of one LM step, and the limb-op roofline of the
+encrypted ADMM stack.
 
-Port of the limb-op half of ``repro.analysis.roofline``
-(:func:`ladder_mulmods`, :func:`limb_ops`, :func:`achieved_vs_peak`): the
-16-bit limb multiplications an OpCounter ``ops`` dict implies, and the
-rate they were retired at over a run's (virtual or wall) seconds against
-the card's peak.  The XLA-HLO half of the reference module (three-term
-roofline of a compiled LM step) belongs to the language-model stack and
-is not here.
+Port of ``repro.analysis.roofline``.  The step half prices what the
+dry-run (``launch.dryrun``) counted on one rank:
+
+    compute term    = flops      / peak FLOP/s            (per card)
+    memory term     = bytes      / HBM bandwidth          (per card)
+    collective term = coll_bytes / (links * link rate)    (per card)
+
+The reference parses a compiled XLA module's text for its collectives;
+the port records them as the step runs (:class:`CollectiveRecorder`, a
+dispatch mode over the ``_c10d_functional`` ops that DTensor's
+redistributions issue) and sums ``max(result, operand)`` bytes per kind
+under the reference's five kind names (:func:`collective_bytes`).
+
+The limb half (:func:`ladder_mulmods`, :func:`limb_ops`,
+:func:`achieved_vs_peak`) gives the 16-bit limb multiplications an
+OpCounter ``ops`` dict implies, and the rate they were retired at over a
+run's (virtual or wall) seconds against the card's peak.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
+
+#: One H100 SXM at its 700 W limit (NVIDIA H100 data sheet, dense rates):
+#: bf16 tensor-core peak, HBM3 bandwidth, and NVLink 4's 18 links of
+#: 25 GB/s each way (900 GB/s per card).  A card set below 700 W runs
+#: slower than these.
+PEAK_FLOPS = 989e12        # bf16 per card
+HBM_BW = 3.35e12           # bytes/s per card
+NVLINK_LINK_BW = 25e9      # bytes/s per link, each way
+NVLINK_LINKS = 18          # links per card
+
+COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+               "collective-permute")
+#: ``_c10d_functional`` op -> the reference's kind name (XLA's HLO names;
+#: no functional op is a collective-permute, which stays 0)
+_KINDS = {
+    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+}
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def collective_kind(func) -> str | None:
+    """The kind name of a ``_c10d_functional`` op, else None."""
+    if getattr(func, "namespace", None) != "_c10d_functional":
+        return None
+    return _KINDS.get(func._overloadpacket.__name__)
+
+
+def record_collective(records: list, func, args, kwargs, out) -> None:
+    """Append (kind, max(result, operand) bytes) for a collective op."""
+    kind = collective_kind(func)
+    if kind is not None:
+        records.append((kind, max(_nbytes(out), _nbytes((args, kwargs)))))
+
+
+class CollectiveRecorder(TorchDispatchMode):
+    """Records every collective on local tensors while active: an op on
+    ``DTensor``s is let through (``NotImplemented``) so the mode sees
+    the collectives DTensor issues for it.  ``records`` holds (kind,
+    bytes) pairs; bytes are per rank."""
+
+    def __init__(self):
+        super().__init__()
+        self.records: list = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        record_collective(self.records, func, args, kwargs, out)
+        return out
+
+
+def collective_bytes(records) -> dict:
+    """Per-kind max(result, operand) bytes summed over instances, from
+    the (kind, bytes) pairs a :class:`CollectiveRecorder` (or the
+    dry-run's meter) took; bytes are per rank."""
+    out = {k: 0 for k in COLLECTIVES}
+    counts = {k: 0 for k in COLLECTIVES}
+    for kind, n in records:
+        out[kind] += n
+        counts[kind] += 1
+    return {"bytes_by_kind": {k: v for k, v in out.items() if v},
+            "counts": {k: v for k, v in counts.items() if v},
+            "total_bytes": sum(out.values())}
+
+
+@dataclasses.dataclass
+class Roofline:
+    flops: float               # per device
+    hbm_bytes: float           # per device
+    coll_bytes: float          # per device
+    t_compute: float
+    t_memory: float
+    t_collective: float
+    bottleneck: str
+    model_flops_total: float   # 6ND-style whole-step useful FLOPs
+    useful_ratio: float        # model_flops / (flops * n_devices)
+
+    def as_dict(self):
+        return dataclasses.asdict(self)
+
+
+def analyze(cost: dict, colls: dict, n_devices: int,
+            model_flops_total: float,
+            coll_bytes_override: float | None = None) -> Roofline:
+    """The three terms of one rank's ``cost`` (``flops``, ``bytes
+    accessed``) and collectives ``colls`` (:func:`collective_bytes`)
+    at the H100's rates."""
+    flops = float(cost.get("flops", 0.0))
+    hbm = float(cost.get("bytes accessed", 0.0))
+    coll = float(colls["total_bytes"] if coll_bytes_override is None
+                 else coll_bytes_override)
+    t_c = flops / PEAK_FLOPS
+    t_m = hbm / HBM_BW
+    t_x = coll / (NVLINK_LINKS * NVLINK_LINK_BW)
+    terms = {"compute": t_c, "memory": t_m, "collective": t_x}
+    bn = max(terms, key=terms.get)
+    useful = model_flops_total / max(flops * n_devices, 1.0)
+    return Roofline(flops=flops, hbm_bytes=hbm, coll_bytes=coll,
+                    t_compute=t_c, t_memory=t_m, t_collective=t_x,
+                    bottleneck=bn, model_flops_total=model_flops_total,
+                    useful_ratio=useful)
+
+
+def model_flops(cfg, shape_kind: str, seq: int, batch: int) -> float:
+    """6*N_active*D for training, 2*N_active*D for inference forward;
+    decode counts one token per sequence in the batch."""
+    n = cfg.active_param_count()
+    if shape_kind == "train":
+        return 6.0 * n * seq * batch
+    if shape_kind == "prefill":
+        return 2.0 * n * seq * batch
+    return 2.0 * n * batch      # decode: one token per sequence
+
+
+# ---------------------------------------------------------------------------
+# Limb-op roofline for the encrypted ADMM stack (RunReports)
+# ---------------------------------------------------------------------------
 
 LIMB_BITS = 16                 # the public limb width (core/bigint.py)
 #: Peak 16-bit limb products per second of one H100 SXM at 700 W.  The

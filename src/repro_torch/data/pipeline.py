@@ -6,6 +6,9 @@ batch and skips none.  ``next(device=...)`` puts a rank's rows of the
 global batch on the device: for data parallelism over ``world`` ranks,
 rank r takes rows ``[r B / world, (r + 1) B / world)``, the rows the
 reference's ``NamedSharding`` over the ``data`` axis gives device r.
+``next(mesh=...)`` returns the batch as ``DTensor``s on a device mesh,
+each data coordinate holding its rows, replicated over the other axes
+(the reference's ``pipe.next(mesh=, dp_axes=)``).
 """
 from __future__ import annotations
 
@@ -35,10 +38,17 @@ class TokenPipeline:
         self.seed = int(st["seed"])
         self.step = int(st["step"])
 
-    def next(self, device=None, rank: int = 0, world: int = 1) -> dict:
-        """The next global batch: numpy arrays when ``device`` is None
-        (the reference's batch, byte for byte), else this rank's rows as
-        tensors on ``device`` (token ids as int64)."""
+    def next(self, device=None, rank: int = 0, world: int = 1,
+             mesh=None) -> dict:
+        """The next global batch: numpy arrays when neither ``device`` nor
+        ``mesh`` is given (the reference's batch, byte for byte), else
+        this rank's rows as tensors on ``device`` (token ids as int64).
+        With ``mesh``, rank and world are its coordinate and size over
+        its data-parallel axes (``launch.mesh.dp_axes``), and each leaf
+        is a ``DTensor`` sharded over them on ``device`` (default the
+        mesh's device type)."""
+        if mesh is not None:
+            return self._next_on(mesh, device)
         b = synthetic.token_batch(self.vocab, self.batch, self.seq,
                                   self.step, self.seed)
         rng = np.random.default_rng(
@@ -54,6 +64,9 @@ class TokenPipeline:
         self.step += 1
         if device is None:
             return b
+        return self._rows(b, device, rank, world)
+
+    def _rows(self, b: dict, device, rank: int, world: int) -> dict:
         if world < 1 or not 0 <= rank < world or self.batch % world:
             raise ValueError(f"rank {rank} of {world}: the batch of "
                              f"{self.batch} does not split evenly")
@@ -65,3 +78,21 @@ class TokenPipeline:
                 t = t.long()
             out[k] = t.to(device)
         return out
+
+    def _next_on(self, mesh, device) -> dict:
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        from ..launch.mesh import dp_axes
+        names = list(mesh.mesh_dim_names)
+        dims = [names.index(a) for a in dp_axes(mesh)]
+        coord = mesh.get_coordinate()
+        rank, world = 0, 1
+        for d in dims:                    # the first axis major
+            rank = rank * mesh.shape[d] + coord[d]
+            world *= mesh.shape[d]
+        local = self._rows(self.next(), device or mesh.device_type, rank,
+                           world)
+        pl = [Shard(0) if d in dims else Replicate()
+              for d in range(mesh.ndim)]
+        return {k: DTensor.from_local(v, mesh, pl, run_check=False)
+                for k, v in local.items()}

@@ -1,11 +1,16 @@
-"""Process groups for data-parallel training.
+"""Process groups and device meshes.
 
-Port of what ``repro.launch.train`` needs from ``repro.launch.mesh``: the
-reference's ``data`` mesh axis becomes a ``torch.distributed`` process
-group, one rank per device.  Gloo on the CPU, NCCL on cards; the store
-is a TCP store on localhost, whose address every rank is given (nothing
-on the machine announces a cluster).  A model axis (tensor parallelism
-over ``registry.param_pspecs``) is not ported.
+Port of ``repro.launch.mesh``.  A process group holds one rank per
+device: gloo on the CPU, NCCL on cards, over a TCP store on localhost
+whose address every rank is given (nothing on the machine announces a
+cluster).  ``make_mesh`` lays a ``DeviceMesh`` with named axes over the
+default group (``("data", "model")``: FSDP and batch on ``data``, tensor
+and expert parallelism on ``model``), the reference's ``jax.make_mesh``;
+:func:`fake_group` forms a group of any size in one process, whose
+collectives move nothing, for the dry-run (``launch.dryrun``), as the
+reference's 512 placeholder devices do.  The reference's
+``kernel_mesh`` (the crypto kernels' batch split over cards) is not
+ported.
 """
 from __future__ import annotations
 
@@ -58,6 +63,50 @@ def process_group(device=None, world: int = 1, rank: int = 0,
         yield dist.group.WORLD
     finally:
         dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def fake_group(world: int):
+    """The default group as rank 0 of ``world`` ranks in this process,
+    on PyTorch's fake backend (collectives return at once and move
+    nothing); torn down after the ``with`` block."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), world_size=world,
+                            rank=0)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+def make_mesh(shape, axes, device=None):
+    """A ``DeviceMesh`` of ``shape`` named ``axes`` over the default
+    group (whose size must be the product of ``shape``), on the cards
+    unless ``device`` is the CPU."""
+    from torch.distributed.device_mesh import init_device_mesh
+    dev = torch.device("cuda" if device is None else device)
+    return init_device_mesh(dev.type, tuple(shape),
+                            mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None):
+    """16x16 ranks; the multi-pod mesh adds a leading 2-pod axis.
+
+    Axes: `data` carries FSDP + batch sharding, `model` carries TP/EP;
+    `pod` (multi-pod) carries pure DP: parameters stay pod-replicated and
+    gradients all-reduce across (pod, data).
+    """
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device)
+
+
+def mesh_shape_dict(mesh) -> dict:
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def dp_axes(mesh) -> tuple:
+    return ("pod", "data") if "pod" in mesh.mesh_dim_names else ("data",)
 
 
 def dp_world(group=None) -> int:

@@ -5,7 +5,12 @@ checkpoints with resume, on the card (``--device cpu`` runs the same on
 the CPU; without a card the default raises).  ``--mesh N`` trains data
 parallel over a process group of N ranks, one per device (gloo on the
 CPU, NCCL on cards), each on its rows of the global batch; ``--mesh 1``
-is one device.  Parameters come from a ``torch.Generator`` seeded 0.
+is one device.  ``--mesh D,M`` trains on a D x M ``("data", "model")``
+device mesh of D * M ranks: parameters and moments are ``DTensor``s at
+``registry.param_pspecs``'s placements (FSDP on ``data``, tensor and
+expert parallelism on ``model``), each data coordinate takes its rows of
+the batch, and checkpoints are saved whole and restored onto the mesh.
+Parameters come from a ``torch.Generator`` seeded 0.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.launch import mesh
 from repro_torch.models import registry
 from repro_torch.train import checkpoint as ckpt_mod
+from repro_torch.train import fault
 from repro_torch.train import loop as loop_mod
 from repro_torch.train.optimizer import OptConfig
 
@@ -38,30 +44,26 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--mesh", default="1",
-                    help="data-parallel ranks, e.g. '4' (a model axis "
-                         "'4,2' is not supported)")
+                    help="mesh spec 'data[,model]', e.g. '4' (data "
+                         "parallel) or '2,2' (a data x model mesh)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; never falls back")
     return ap
 
 
-def data_ranks(spec: str) -> int:
-    """The data axis of ``--mesh``; a model axis raises."""
-    dims = [int(x) for x in spec.split(",")]
+def mesh_dims(spec: str) -> tuple:
+    """``--mesh``: ``(data,)`` or ``(data, model)``."""
+    dims = tuple(int(x) for x in spec.split(","))
     if len(dims) > 2 or min(dims) < 1:
         raise ValueError(f"--mesh {spec!r}: expected 'data' or 'data,model'")
-    if len(dims) == 2 and dims[1] > 1:
-        raise ValueError(
-            f"--mesh {spec!r}: a model axis needs tensor-parallel parameter "
-            "specs (registry.param_pspecs), which are ROADMAP section A "
-            "item 3 (the dry-run and its specs) and not ported; use "
-            f"--mesh {dims[0]} for data parallelism")
-    return dims[0]
+    return dims
 
 
-def train(args, device, rank: int = 0, world: int = 1, group=None):
-    """The training loop on one rank; returns the last step's metrics."""
+def train(args, device, rank: int = 0, world: int = 1, group=None,
+          dmesh=None):
+    """The training loop on one rank (on ``dmesh``, a ``DeviceMesh``,
+    when given); returns the last step's metrics."""
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     lead = rank == 0
     opt_cfg = OptConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1),
@@ -69,6 +71,13 @@ def train(args, device, rank: int = 0, world: int = 1, group=None):
     train_step = loop_mod.make_train_step(cfg, opt_cfg, use_scan=True,
                                           remat=True, group=group)
     state = loop_mod.init_train_state(cfg, 0, device)
+    shardings = None
+    if dmesh is not None:
+        specs = registry.param_pspecs(cfg, state["params"],
+                                      mesh.mesh_shape_dict(dmesh))
+        state = loop_mod.shard_train_state(state, dmesh, specs)
+        shardings = fault.shardings_for(dmesh,
+                                        loop_mod.state_pspecs(specs))
     pipe = TokenPipeline(
         vocab=cfg.vocab, batch=args.batch, seq=args.seq,
         prefix=cfg.n_prefix if cfg.frontend == "vision" else 0,
@@ -81,7 +90,8 @@ def train(args, device, rank: int = 0, world: int = 1, group=None):
         last = ckpt_mod.latest_step(args.ckpt_dir)
         if last is not None:
             state, manifest = ckpt_mod.restore(args.ckpt_dir, state,
-                                               device=device)
+                                               device=device,
+                                               shardings=shardings)
             pipe.load_state(manifest["extra"]["pipeline"])
             start = manifest["step"]
             if lead:
@@ -89,20 +99,23 @@ def train(args, device, rank: int = 0, world: int = 1, group=None):
 
     metrics, saved = None, None
     t0 = time.time()
+    # a mesh's ranks all join a checkpoint's gather; rank 0 writes
+    saver = lead or dmesh is not None
     for i in range(start, args.steps):
-        batch = pipe.next(device=device, rank=rank, world=world)
+        batch = (pipe.next(device=device, mesh=dmesh) if dmesh is not None
+                 else pipe.next(device=device, rank=rank, world=world))
         state, metrics = train_step(state, batch)
         if lead and ((i + 1) % args.log_every == 0 or i == start):
             print(f"step {i+1:5d} loss={float(metrics['loss']):.4f} "
                   f"gnorm={float(metrics['grad_norm']):.3f} "
                   f"lr={float(metrics['lr']):.2e} "
                   f"({(time.time()-t0)/(i-start+1):.2f}s/step)", flush=True)
-        if lead and args.ckpt_dir and args.ckpt_every \
+        if saver and args.ckpt_dir and args.ckpt_every \
                 and (i + 1) % args.ckpt_every == 0:
             ckpt_mod.save(args.ckpt_dir, i + 1, state,
                           extra={"pipeline": pipe.state()})
             saved = i + 1
-    if lead and args.ckpt_dir and saved != args.steps:
+    if saver and args.ckpt_dir and saved != args.steps:
         ckpt_mod.save(args.ckpt_dir, args.steps, state,
                       extra={"pipeline": pipe.state()})
     final = float(metrics["loss"]) if metrics else float("nan")
@@ -112,25 +125,31 @@ def train(args, device, rank: int = 0, world: int = 1, group=None):
     return metrics
 
 
-def _rank_main(rank, args, world, port):
+def _rank_main(rank, args, dims, port):
+    world = dims[0] if len(dims) == 1 else dims[0] * dims[1]
     device = mesh.rank_device(args.device, rank)
     with mesh.process_group(device, world, rank, port) as group:
-        train(args, device, rank, world, group)
+        if len(dims) == 1:
+            train(args, device, rank, world, group)
+        else:
+            dmesh = mesh.make_mesh(dims, ("data", "model"), device)
+            train(args, device, rank, dmesh=dmesh)
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
     try:
         device = resolve_device(args.device)
-        world = data_ranks(args.mesh)
+        dims = mesh_dims(args.mesh)
     except (RuntimeError, ValueError) as e:
         raise SystemExit(f"train: {e}") from None
-    if world == 1:
+    world = dims[0] if len(dims) == 1 else dims[0] * dims[1]
+    if len(dims) == 1 and world == 1:
         return train(args, device)
     if device.type == "cuda" and torch.cuda.device_count() < world:
         raise SystemExit(f"train: --mesh {world} needs {world} cards, "
                          f"{torch.cuda.device_count()} present")
-    mp.start_processes(_rank_main, args=(args, world, mesh.free_port()),
+    mp.start_processes(_rank_main, args=(args, dims, mesh.free_port()),
                        nprocs=world, start_method="spawn")
 
 

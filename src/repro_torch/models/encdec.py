@@ -66,7 +66,8 @@ def encode(params, frames, cfg, use_scan=True, remat=False, **_):
     x = frames.to(L.cdtype(cfg))
     positions = torch.arange(x.shape[1], device=x.device)[None]
     for lp in params["enc"]:
-        x = L.remat_call(_enc_block, remat, lp, x, cfg, positions)
+        x = L.constrain_acts(L.remat_call(_enc_block, remat, lp, x, cfg,
+                                          positions))
     return L.rms_norm(x, params["ln_enc"], cfg.norm_eps)
 
 
@@ -74,8 +75,8 @@ def _cross_kv(lp, memory, cfg):
     B, T, _ = memory.shape
     mk = memory @ lp["cross_attn"].w("wk", memory.dtype)
     mv = memory @ lp["cross_attn"].w("wv", memory.dtype)
-    return (mk.reshape(B, T, cfg.n_kv, cfg.hd),
-            mv.reshape(B, T, cfg.n_kv, cfg.hd))
+    return (L.split_heads(mk, cfg.n_kv, cfg.hd),
+            L.split_heads(mv, cfg.n_kv, cfg.hd))
 
 
 def _dec_block(lp, h, ck, cv, cfg, positions, kv_out=None):
@@ -106,7 +107,8 @@ def forward(params, tokens, cfg, *, frames=None, use_scan=True, remat=False,
     x = L.embed(params, tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=x.device)[None]
     for lp in params["dec"]:
-        x = L.remat_call(_dec_layer, remat, lp, x, memory, cfg, positions)
+        x = L.constrain_acts(L.remat_call(_dec_layer, remat, lp, x, memory,
+                                          cfg, positions))
     return L.head_logits(params, x, cfg)
 
 

@@ -16,9 +16,11 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from .. import resolve_device
 from . import layers as L
+from . import spmd
 
 _LRU_C = 8.0
 
@@ -71,7 +73,10 @@ def _lru_coeffs(p, x):
 
 def lru_scan(a, b):
     """h_t = a_t h_{t-1} + b_t over axis 1 from h_0 = 0, float32; returns
-    every h_t, (B, S, w)."""
+    every h_t, (B, S, w).  On a mesh the loop runs on each rank's rows
+    (``spmd.batch_local``)."""
+    if isinstance(b, DTensor):
+        return spmd.batch_local(lru_scan, (a, b))
     h = torch.zeros_like(b[:, 0])
     hs = []
     for t in range(b.shape[1]):
@@ -166,7 +171,8 @@ def forward(params, tokens, cfg, *, remat=False, **_):
     x = L.embed(params, tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=x.device)[None]
     for i, bp in enumerate(params["blocks"]):
-        x = L.remat_call(block_forward, remat, bp, x, cfg, i, positions)
+        x = L.constrain_acts(L.remat_call(block_forward, remat, bp, x, cfg,
+                                          i, positions))
     return L.head_logits(params, x, cfg)
 
 
@@ -206,6 +212,7 @@ def _attn_decode_ring(p, h, st, cfg, pos):
     st["v"][:, slot] = v[:, 0].to(st["v"].dtype)
     st["pos"][slot] = pos
     # attend over the valid ring slots
+    q = spmd.whole_dim(q, 2)
     B, _, H, D = q.shape
     KV = st["k"].shape[2]
     qg = q.reshape(B, 1, KV, H // KV, D).float()
@@ -216,6 +223,29 @@ def _attn_decode_ring(p, h, st, cfg, pos):
     o = torch.einsum("bgrst,btgd->bsgrd", pmax, st["v"].float())
     o = o.reshape(B, 1, H, D).to(h.dtype)
     return L.attn_out(p["attn"], o, cfg)
+
+
+def _ring_put(st, slots, k, v, pos):
+    """Write keys/values (B, n, KV, hd) and their positions at ring
+    ``slots``; a ``DTensor`` ring is written on each rank's rows
+    (``spmd.batch_local``) and its tags on a whole copy: DTensor has no
+    rule for an index write."""
+    if not isinstance(st["k"], DTensor):
+        st["k"][:, slots] = k.to(st["k"].dtype)
+        st["v"][:, slots] = v.to(st["v"].dtype)
+        st["pos"][slots] = pos
+        return
+
+    def put(kc, vc, kn, vn):
+        kc, vc = kc.clone(), vc.clone()
+        kc[:, slots] = kn.to(kc.dtype)
+        vc[:, slots] = vn.to(vc.dtype)
+        return kc, vc
+    st["k"], st["v"] = spmd.batch_local(put, (st["k"], st["v"], k, v))
+    tags, mesh = spmd.gathered(st["pos"])
+    tags = tags.clone()
+    tags[slots] = pos.to(tags.dtype)
+    st["pos"] = spmd.replicated(tags, mesh)
 
 
 def decode_step(params, token, cache, cfg, **_):
@@ -253,9 +283,7 @@ def prefill(params, tokens, cfg, cache, **_):
             pos_tail = torch.arange(S - take, S, dtype=torch.int32,
                                     device=x.device)
             slots = (pos_tail % win).long()
-            st["k"][:, slots] = k[:, -take:].to(st["k"].dtype)
-            st["v"][:, slots] = v[:, -take:].to(st["v"].dtype)
-            st["pos"][slots] = pos_tail
+            _ring_put(st, slots, k[:, -take:], v[:, -take:], pos_tail)
         else:
             xi, gate = _rec_inputs(bp, h)
             xi, conv_state = causal_conv(bp, xi, None)

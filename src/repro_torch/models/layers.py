@@ -12,9 +12,10 @@ give the same numbers.  A trainable leaf is always cast where it is
 used, so its gradient reaches the float32 master weight.  ``remat_call``
 is the reference's ``jax.checkpoint`` around a block.
 
-Not ported: the reference's ``set_activation_sharding``/``constrain_acts``
-(its ``layers.py:33-55``), hooks for the TPU mesh that do nothing without
-one.  They come back with the multi-card work.
+On a device mesh the parameters are ``DTensor``s (``registry.
+distribute_params``) and DTensor's sharding propagation places every
+activation; ``constrain_acts`` lays the residual stream between blocks
+out at the placements a launcher installs (``set_activation_sharding``).
 """
 from __future__ import annotations
 
@@ -23,9 +24,11 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
+from . import spmd
 
 ACTS = {
     "silu": F.silu,
@@ -42,6 +45,40 @@ STACKED = ("layers", "enc", "dec")
 
 def cdtype(cfg) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+# ---------------------------------------------------------------------------
+# Activation sharding between blocks
+# ---------------------------------------------------------------------------
+# The launch layer installs placements for the residual stream; block
+# boundaries redistribute (B, S, D) DTensor activations to them (batch
+# over the DP axes, hidden over `model`), which keeps the per-device live
+# set of a wide model small.  No-op when unset, for a plain tensor, or
+# where a dim does not divide.
+
+_ACT_SHARDING = None
+
+
+def set_activation_sharding(mesh, placements=None) -> None:
+    """Install ``placements`` on ``mesh`` for the residual stream, or
+    clear them with ``mesh=None``."""
+    global _ACT_SHARDING
+    _ACT_SHARDING = None if mesh is None else (mesh, tuple(placements))
+
+
+def constrain_acts(x: torch.Tensor) -> torch.Tensor:
+    if _ACT_SHARDING is None or x.ndim != 3 or not isinstance(x, DTensor):
+        return x
+    mesh, placements = _ACT_SHARDING
+    if x.device_mesh != mesh:
+        return x
+    ways = [1] * x.ndim
+    for size, pl in zip(mesh.shape, placements):
+        if pl.is_shard():
+            ways[pl.dim] *= size
+    if any(dim % n for dim, n in zip(x.shape, ways)):
+        return x
+    return x.redistribute(mesh, placements)
 
 
 # ---------------------------------------------------------------------------
@@ -91,11 +128,15 @@ class Params(nn.Module):
     def take(self, name: str, idx: torch.Tensor, dtype: torch.dtype):
         """Rows ``idx`` of parameter ``name`` in ``dtype`` (the embedding
         lookup; gathering before the cast gives the same numbers, and a
-        trainable table's gradient rows add up in float32)."""
+        trainable table's gradient rows add up in float32).  A table on a
+        mesh stays split (``spmd.embed_vocab_parallel``)."""
         held = self._copy(name, dtype)
         if held is not None:
             return held[idx]
-        return self._parameters[name][idx].to(dtype)
+        table = self._parameters[name]
+        if isinstance(table, DTensor):
+            return spmd.embed_vocab_parallel(table, idx).to(dtype)
+        return table[idx].to(dtype)
 
     def hold(self, dtype: torch.dtype) -> "Params":
         """Cast every matrix of the tree to ``dtype`` once and keep the
@@ -262,63 +303,59 @@ def attention_flash(q, k, v, *, causal=True, window=0,
                     q_chunk=512, k_chunk=512):
     """Online-softmax chunked attention (no S x T score matrix).
 
-    Sequences are padded up to chunk multiples: padded key positions are
-    masked, padded query rows sliced off.  The running max starts at the
-    mask value and the row sum is floored at 1e-30, as in the reference.
+    The keys are taken ``k_chunk`` at a time, padded up to a chunk
+    multiple (padded key positions are masked); every query row is
+    updated by each key chunk in turn, which is what the reference's map
+    over ``q_chunk``-row chunks computes for each row, in the same order
+    (``q_chunk`` changes no number).  The running max starts at the mask
+    value and the row sum is floored at 1e-30, as in the reference.
     """
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
-    q_chunk = min(q_chunk, S)
     k_chunk = min(k_chunk, T)
-    S0, T0 = S, T
-    pad_q = (-S) % q_chunk
+    T0 = T
     pad_k = (-T) % k_chunk
-    if pad_q:
-        q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
-        S += pad_q
     if pad_k:
         k = F.pad(k, (0, 0, 0, 0, 0, pad_k))
         v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
         T += pad_k
-    nq, nk = S // q_chunk, T // k_chunk
+    nk = T // k_chunk
     rep = H // KV
     scale = float(1.0 / math.sqrt(D))
     dev = q.device
-    chunks = []
-    for qi in range(nq):
-        qc = q[:, qi * q_chunk:(qi + 1) * q_chunk]
-        qc = _group(qc, KV).float() * scale
-        qpos = qi * q_chunk + torch.arange(q_chunk, device=dev)
-        m = torch.full((B, KV, rep, q_chunk), MASK_VALUE, device=dev)
-        l = torch.zeros((B, KV, rep, q_chunk), device=dev)
-        acc = torch.zeros((B, KV, rep, q_chunk, D), device=dev)
-        for kj in range(nk):
-            kc = k[:, kj * k_chunk:(kj + 1) * k_chunk]
-            vc = v[:, kj * k_chunk:(kj + 1) * k_chunk]
-            s = torch.einsum("bsgrd,btgd->bgrst", qc, kc.float())
-            kpos = kj * k_chunk + torch.arange(k_chunk, device=dev)
-            mask = (kpos < T0)[None, :].expand(q_chunk, k_chunk)
-            if causal:
-                mask = mask & (qpos[:, None] >= kpos[None, :])
-            if window:
-                mask = mask & (qpos[:, None] - kpos[None, :] < window)
-            s = s.masked_fill(~mask, MASK_VALUE)
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + torch.einsum(
-                "bgrst,btgd->bgrsd", p, vc.float())
-            m = m_new
-        out = acc / torch.clamp(l[..., None], min=1e-30)
-        # (B,KV,rep,qc,D) -> (B,qc,H,D)
-        chunks.append(out.permute(0, 3, 1, 2, 4).reshape(B, q_chunk, H, D))
-    out = torch.cat(chunks, dim=1)
-    return out[:, :S0].to(q.dtype)
+    qg = _group(q, KV).float() * scale
+    qpos = torch.arange(S, device=dev)
+    m = torch.full((B, KV, rep, S), MASK_VALUE, device=dev)
+    l = torch.zeros((B, KV, rep, S), device=dev)
+    acc = torch.zeros((B, KV, rep, S, D), device=dev)
+    for kj in range(nk):
+        kc = k[:, kj * k_chunk:(kj + 1) * k_chunk]
+        vc = v[:, kj * k_chunk:(kj + 1) * k_chunk]
+        s = torch.einsum("bsgrd,btgd->bgrst", qg, kc.float())
+        kpos = kj * k_chunk + torch.arange(k_chunk, device=dev)
+        mask = (kpos < T0)[None, :].expand(S, k_chunk)
+        if causal:
+            mask = mask & (qpos[:, None] >= kpos[None, :])
+        if window:
+            mask = mask & (qpos[:, None] - kpos[None, :] < window)
+        s = s.masked_fill(~mask, MASK_VALUE)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bgrst,btgd->bgrsd", p, vc.float())
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    # (B,KV,rep,S,D) -> (B,S,H,D)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)
 
 
 def attention_decode(q, k_cache, v_cache, cache_len: int, *, window=0):
-    """Single new token vs. a (B, Smax, KV, D) cache. q: (B, 1, H, D)."""
+    """Single new token vs. a (B, Smax, KV, D) cache. q: (B, 1, H, D).
+    On a mesh the query's heads are gathered whole (one token's worth)
+    and the cache stays as it is split."""
+    q = spmd.whole_dim(q, 2)
     B, _, H, D = q.shape
     T, KV = k_cache.shape[1], k_cache.shape[2]
     qg = _group(q, KV).float()
@@ -335,7 +372,12 @@ def attention_decode(q, k_cache, v_cache, cache_len: int, *, window=0):
 
 
 def attention(q, k, v, *, causal=True, window=0, flash_threshold=2048):
-    """Dispatch: naive below the threshold, flash from it on."""
+    """Dispatch: naive below the threshold, flash from it on.  On a mesh
+    each rank attends its own rows and heads (``spmd.local_attention``)."""
+    if isinstance(q, DTensor):
+        return spmd.local_attention(attention, q, k, v, causal=causal,
+                                window=window,
+                                flash_threshold=flash_threshold)
     if q.shape[1] >= flash_threshold or k.shape[1] >= flash_threshold:
         return attention_flash(q, k, v, causal=causal, window=window)
     return attention_naive(q, k, v, causal=causal, window=window)
@@ -369,21 +411,45 @@ def qkv_proj(p: Params, x, cfg, positions):
     q = x @ p.w("wq", dt)
     k = x @ p.w("wk", dt)
     v = x @ p.w("wv", dt)
-    if cfg.qkv_bias:
-        q = q + p.w("bq", dt)
-        k = k + p.w("bk", dt)
-        v = v + p.w("bv", dt)
-    q = q.reshape(B, S, cfg.q_heads, hd)
-    k = k.reshape(B, S, cfg.n_kv, hd)
-    v = v.reshape(B, S, cfg.n_kv, hd)
+    if cfg.qkv_bias:      # (a partial product takes its sum before a bias)
+        q = spmd.settle(q) + p.w("bq", dt)
+        k = spmd.settle(k) + p.w("bk", dt)
+        v = spmd.settle(v) + p.w("bv", dt)
+    q = split_heads(q, cfg.q_heads, hd)
+    k = split_heads(k, cfg.n_kv, hd)
+    v = split_heads(v, cfg.n_kv, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
+def split_heads(t, n: int, hd: int):
+    """(..., n * hd) -> (..., n, hd); a ``DTensor`` split over its last
+    dim into a count of shards that does not divide ``n`` is gathered on
+    those mesh dims first."""
+    if isinstance(t, DTensor):
+        from torch.distributed.tensor import Shard
+        ways = 1
+        for size, p in zip(t.device_mesh.shape, t.placements):
+            ways *= size if p == Shard(t.ndim - 1) else 1
+        if n % ways:
+            t = spmd.whole_dim(t, -1)
+    return t.reshape(*t.shape[:-1], n, hd)
+
+
 def attn_out(p: Params, o, cfg):
     B, S, H, hd = o.shape
-    return o.reshape(B, S, H * hd) @ p.w("wo", o.dtype)
+    return merge_heads(o) @ p.w("wo", o.dtype)
+
+
+def merge_heads(o):
+    """(..., n, hd) -> (..., n * hd).  On a ``DTensor`` the gradient is
+    laid out as the merged output was before the backward view splits
+    it again (DTensor's own choice for the gradient may split the
+    merged dim where the heads do not divide)."""
+    if isinstance(o, DTensor):
+        return spmd.MergeHeads.apply(o)
+    return o.reshape(*o.shape[:-2], o.shape[-2] * o.shape[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -423,8 +489,12 @@ def head_logits(params: Params, x: torch.Tensor, cfg, norm="ln_f"):
 
 
 def nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean next-token NLL over labels >= 0 (the reference's loss)."""
+    """Mean next-token NLL over labels >= 0 (the reference's loss); on a
+    mesh, ``spmd.nll_vocab_parallel``."""
+    if isinstance(logits, DTensor):
+        return spmd.nll_vocab_parallel(logits, labels)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
     mask = (labels >= 0).float()
     return torch.sum((lse - ll) * mask) / torch.clamp(mask.sum(), min=1.0)
+

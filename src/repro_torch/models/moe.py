@@ -9,6 +9,14 @@ written into an (E, C, d) buffer (at most one per slot), the experts run
 as batched matmuls, and each token's k weighted outputs are summed in
 assignment order in the compute dtype, as the reference's scatter-add
 does.  Shared experts are always-on dense MLPs.
+
+On a device mesh the routing, the buffer's scatter and the outputs'
+gather have no DTensor sharding rule: the tokens are gathered whole
+(``spmd.gathered``) and every rank routes all of them, as the
+reference's global capacity ranks them; the (E, C, d) buffer is then
+split over the mesh dims that shard the experts' E dim (expert
+parallelism: each rank runs its experts), and the experts' outputs
+gathered whole again for the combine.
 """
 from __future__ import annotations
 
@@ -18,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from . import layers as L
+from . import spmd
 
 
 def init_moe(init: L.Init, cfg) -> dict:
@@ -55,8 +64,9 @@ def moe_block(p: L.Params, x: torch.Tensor, cfg) -> torch.Tensor:
     dt = x.dtype
     dev = x.device
     xf = x.reshape(T, d)
+    xw, mesh = spmd.gathered(xf)          # every token, on a mesh too
 
-    logits = xf.float() @ p["router"].float()
+    logits = xw.float() @ spmd.gathered(p["router"])[0].float()
     topv, topi = top_k(logits, k)                          # (T, k)
     gates = torch.softmax(topv, dim=-1)                    # (T, k)
 
@@ -69,13 +79,14 @@ def moe_block(p: L.Params, x: torch.Tensor, cfg) -> torch.Tensor:
 
     # dropped assignments go to a spare slot C that is cut off again
     buf = torch.zeros((E, C + 1, d), dtype=dt, device=dev)
-    buf[eid, torch.where(keep, pos_c, C)] = xf[tid]
-    buf = buf[:, :C]
+    buf[eid, torch.where(keep, pos_c, C)] = xw[tid]
+    buf = _experts_split(buf[:, :C], mesh, p["we_gate"])
 
     h = L.ACTS[cfg.act](torch.einsum("ecd,edf->ecf", buf,
                                      p.w("we_gate", dt)))
     h = h * torch.einsum("ecd,edf->ecf", buf, p.w("we_up", dt))
-    out_buf = torch.einsum("ecf,efd->ecd", h, p.w("we_down", dt))
+    out_buf, _ = spmd.gathered(torch.einsum("ecf,efd->ecd", h,
+                                         p.w("we_down", dt)))
 
     gathered = out_buf[eid, pos_c] * keep[:, None].to(dt)  # (T*k, d)
     w = gates.reshape(-1)[:, None].to(dt)
@@ -83,7 +94,18 @@ def moe_block(p: L.Params, x: torch.Tensor, cfg) -> torch.Tensor:
     y = contrib[:, 0]
     for j in range(1, k):                                  # assignment order
         y = y + contrib[:, j]
+    y = spmd.replicated(y, mesh).reshape(B, S, d)
 
     if cfg.n_shared_experts:
-        y = y + L.mlp(p["shared"], xf, cfg.act)
-    return y.reshape(B, S, d)
+        y = y + L.mlp(p["shared"], x, cfg.act)
+    return y
+
+
+def _experts_split(buf, mesh, w):
+    """The (E, C, d) buffer on ``mesh`` split over the mesh dims that
+    shard the expert weight ``w``'s E dim; as it is without a mesh."""
+    if mesh is None:
+        return buf
+    from torch.distributed.tensor import Replicate, Shard
+    pl = [Shard(0) if p == Shard(0) else Replicate() for p in w.placements]
+    return spmd.replicated(buf, mesh).redistribute(mesh, pl)

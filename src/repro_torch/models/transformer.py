@@ -93,7 +93,8 @@ def forward(params, tokens, cfg, *, prefix_embeds=None, use_scan=True,
     P = 0 if prefix_embeds is None else prefix_embeds.shape[1]
     positions = torch.arange(x.shape[1], device=x.device)[None]
     for lp in params["layers"]:
-        x = L.remat_call(block, remat, lp, x, cfg, positions)
+        x = L.constrain_acts(L.remat_call(block, remat, lp, x, cfg,
+                                          positions))
     return L.head_logits(params, x[:, P:], cfg)
 
 

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from .. import resolve_device
 from . import layers as L
+from . import spmd
 
 
 def _inner(cfg) -> int:
@@ -61,24 +62,31 @@ def _gates(p, xi):
     """log-space input/forget gates: (B,S,H)."""
     x32 = xi.float()
     li = x32 @ p["w_i"].float() + p["b_i"]                     # log i
-    lf = F.logsigmoid(x32 @ p["w_f"].float() + p["b_f"])
+    lf = spmd.local_apply(F.logsigmoid, x32 @ p["w_f"].float() + p["b_f"])
     return li, lf
 
 
 def mlstm_parallel(p, xi, cfg):
-    """Stabilised decay-masked quadratic form. xi: (B,S,di)."""
+    """Stabilised decay-masked quadratic form. xi: (B,S,di).  On a mesh
+    the form runs on each rank's rows (``spmd.batch_local``)."""
     B, S, di = xi.shape
     H = cfg.n_heads
     hd = di // H
     dt = xi.dtype
-    q = (xi @ p.w("w_q", dt)).reshape(B, S, H, hd)
-    k = (xi @ p.w("w_k", dt)).reshape(B, S, H, hd) / math.sqrt(hd)
-    v = (xi @ p.w("w_v", dt)).reshape(B, S, H, hd)
+    q = L.split_heads(xi @ p.w("w_q", dt), H, hd)
+    k = L.split_heads(xi @ p.w("w_k", dt), H, hd) / math.sqrt(hd)
+    v = L.split_heads(xi @ p.w("w_v", dt), H, hd)
     li, lf = _gates(p, xi)                                     # (B,S,H)
+    h = spmd.batch_local(_mlstm_form, (q, k, v, li, lf))
+    return L.merge_heads(h).to(dt)
+
+
+def _mlstm_form(q, k, v, li, lf):
+    S = q.shape[1]
     Fc = torch.cumsum(lf, dim=1)                               # log prod f
     # log decay D[t,s] = F_t - F_s + li_s  (s <= t)
     logD = Fc[:, :, None, :] - Fc[:, None, :, :] + li[:, None, :, :]
-    tri = torch.tril(torch.ones((S, S), dtype=torch.bool, device=xi.device))
+    tri = torch.tril(torch.ones((S, S), dtype=torch.bool, device=q.device))
     logD = logD.masked_fill(~tri[None, :, :, None], float("-inf"))
     m = logD.amax(dim=2, keepdim=True)                         # (B,T,1,H)
     D = torch.exp(logD - m)                                    # stabilised
@@ -86,22 +94,29 @@ def mlstm_parallel(p, xi, cfg):
     Ct = qk * D
     norm = torch.maximum(torch.abs(Ct.sum(dim=2)), torch.exp(-m[:, :, 0, :]))
     h = torch.einsum("btsh,bshd->bthd", Ct, v.float())
-    h = h / norm[..., None]
-    return h.reshape(B, S, di).to(dt)
+    return h / norm[..., None]
 
 
 def mlstm_decode(p, xi, state, cfg):
-    """One-step recurrent form. xi: (B,1,di); state: dict(C,n,m)."""
+    """One-step recurrent form. xi: (B,1,di); state: dict(C,n,m).  On a
+    mesh the step runs on each rank's rows (``spmd.batch_local``)."""
     B, _, di = xi.shape
     H = cfg.n_heads
     hd = di // H
     dt = xi.dtype
-    q = (xi @ p.w("w_q", dt)).reshape(B, H, hd).float()
-    k = ((xi @ p.w("w_k", dt)).reshape(B, H, hd) / math.sqrt(hd)).float()
-    v = (xi @ p.w("w_v", dt)).reshape(B, H, hd).float()
+    q = L.split_heads(xi @ p.w("w_q", dt), H, hd).reshape(B, H, hd).float()
+    k = (L.split_heads(xi @ p.w("w_k", dt), H, hd).reshape(B, H, hd)
+         / math.sqrt(hd)).float()
+    v = L.split_heads(xi @ p.w("w_v", dt), H, hd).reshape(B, H, hd).float()
     li, lf = _gates(p, xi)
-    li, lf = li[:, 0], lf[:, 0]                                # (B,H)
-    m_prev, C_prev, n_prev = state["m"], state["C"], state["n"]
+    h, C, n, m = spmd.batch_local(
+        _mlstm_step, (q, k, v, li[:, 0], lf[:, 0], state["m"], state["C"],
+                      state["n"]))
+    return L.merge_heads(h).reshape(B, 1, di).to(dt), {"C": C, "n": n,
+                                                       "m": m}
+
+
+def _mlstm_step(q, k, v, li, lf, m_prev, C_prev, n_prev):
     m = torch.maximum(lf + m_prev, li)
     f = torch.exp(lf + m_prev - m)
     i = torch.exp(li - m)
@@ -111,8 +126,7 @@ def mlstm_decode(p, xi, state, cfg):
     num = torch.einsum("bhij,bhj->bhi", C, q)
     den = torch.maximum(torch.abs(torch.einsum("bhj,bhj->bh", n, q)),
                         torch.exp(-m))
-    h = num / den[..., None]
-    return h.reshape(B, 1, di).to(dt), {"C": C, "n": n, "m": m}
+    return num / den[..., None], C, n, m
 
 
 def mlstm_init_state(cfg, batch, device):
@@ -133,13 +147,22 @@ def slstm_scan(p, xi, cfg, state=None):
     B, S, di = xi.shape
     H = cfg.n_heads
     hd = di // H
-    z_in = (xi @ p.w("w_v", xi.dtype)).reshape(B, S, H, hd)
-    o_in = (xi @ p.w("w_o", xi.dtype)).reshape(B, S, H, hd)
+    z_in = L.split_heads(xi @ p.w("w_v", xi.dtype), H, hd)
+    o_in = L.split_heads(xi @ p.w("w_o", xi.dtype), H, hd)
     li, lf = _gates(p, xi)
     if state is None:
         state = slstm_init_state(cfg, B, xi.device)
-    rz = p["r_z"].float()
-    c, n, m, h = state["c"], state["n"], state["m"], state["h"]
+    # on a mesh the loop runs on each rank's rows (spmd.batch_local)
+    out, c, n, m, h = spmd.batch_local(
+        _slstm_loop, (z_in, o_in, li, lf, state["c"], state["n"],
+                      state["m"], state["h"]), (p["r_z"],))
+    return out.to(xi.dtype), {"c": c, "n": n, "m": m, "h": h}
+
+
+def _slstm_loop(z_in, o_in, li, lf, c, n, m, h, r_z):
+    """The sLSTM recurrence over time; returns (hs (B,S,di), c, n, m, h)."""
+    B, S, H, hd = z_in.shape
+    rz = r_z.float()
     hs = []
     for t in range(S):
         z = torch.tanh(z_in[:, t].float()
@@ -152,8 +175,7 @@ def slstm_scan(p, xi, cfg, state=None):
         h = torch.sigmoid(o_in[:, t].float()) * c / torch.clamp(n, min=1e-6)
         m = m_new
         hs.append(h)
-    out = torch.stack(hs, dim=1).reshape(B, S, di).to(xi.dtype)
-    return out, {"c": c, "n": n, "m": m, "h": h}
+    return torch.stack(hs, dim=1).reshape(B, S, H * hd), c, n, m, h
 
 
 def slstm_init_state(cfg, batch, device):
@@ -215,7 +237,8 @@ def init_params(cfg, seed: int = 0, device=None) -> L.Params:
 def forward(params, tokens, cfg, *, remat=False, **_):
     x = L.embed(params, tokens, cfg)
     for i, bp in enumerate(params["blocks"]):
-        x = L.remat_call(block_forward, remat, bp, x, cfg, i)
+        x = L.constrain_acts(L.remat_call(block_forward, remat, bp, x, cfg,
+                                          i))
     return L.head_logits(params, x, cfg)
 
 

@@ -7,9 +7,13 @@ and renamed into place.  Every leaf is saved under its key path, joined
 with ``/``: dict keys, list indices, and for a
 :class:`~repro_torch.models.layers.Params` tree its sub-trees, with a
 ``ModuleList`` index as a path element as a list index is in the
-reference.  bfloat16 leaves are stored viewed as ``uint16``.
-``restore(..., device=)`` puts each leaf on the device asked for, the
-port's counterpart of the reference's ``shardings=``.
+reference.  bfloat16 leaves are stored viewed as ``uint16``.  A
+``DTensor`` leaf (a train state on a device mesh) is saved whole
+(``full_tensor()``, a collective every rank of the mesh joins; global
+rank 0 writes), so the format is the same and a checkpoint taken on one
+mesh restores onto another.  ``restore(..., device=)`` puts each leaf on
+the device asked for; ``restore(..., shardings=)`` lays leaves out on a
+mesh, as the reference's ``shardings=`` does.
 
 The port keeps a model's layers as a list where the reference stacks
 them along axis 0, so the two packages' parameter keys differ; a
@@ -29,6 +33,8 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from ..models.layers import Params
 
@@ -56,7 +62,10 @@ def _walk(node, prefix=""):
 
 def _to_numpy(leaf):
     """A leaf as a host numpy array, copied (so a later in-place update
-    of a CPU tensor cannot reach it); bfloat16 as its uint16 bits."""
+    of a CPU tensor cannot reach it); bfloat16 as its uint16 bits.  A
+    ``DTensor`` is gathered whole first."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
@@ -66,13 +75,17 @@ def _to_numpy(leaf):
 
 
 def _flatten(tree):
-    out, dtypes = {}, {}
+    """(arrays, dtypes, writer): ``writer`` is False on every rank but
+    global rank 0 when the tree holds ``DTensor`` leaves (each rank
+    gathers them, one writes)."""
+    out, dtypes, sharded = {}, {}, False
     for key, leaf in _walk(tree):
+        sharded |= isinstance(leaf, DTensor)
         arr, dt = _to_numpy(leaf)
         if dt:
             dtypes[key] = dt
         out[key] = arr
-    return out, dtypes
+    return out, dtypes, not sharded or dist.get_rank() == 0
 
 
 def _write(ckpt_dir, step, arrays, dtypes, extra) -> str:
@@ -95,17 +108,24 @@ def _write(ckpt_dir, step, arrays, dtypes, extra) -> str:
 
 
 def save(ckpt_dir: str, step: int, tree, extra: dict | None = None) -> str:
-    """Atomic checkpoint write; returns the final directory path."""
-    arrays, dtypes = _flatten(tree)
-    return _write(ckpt_dir, step, arrays, dtypes, extra)
+    """Atomic checkpoint write; returns the final directory path.  A tree
+    on a device mesh is saved by every rank's call (only global rank 0
+    writes)."""
+    arrays, dtypes, writer = _flatten(tree)
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    return _write(ckpt_dir, step, arrays, dtypes, extra) if writer else final
 
 
 def save_async(ckpt_dir: str, step: int, tree, extra: dict | None = None
                ) -> threading.Thread:
     """Overlap checkpoint I/O with the next train step (the leaves are
     copied to the host synchronously; the write happens on a worker
-    thread)."""
-    arrays, dtypes = _flatten(tree)
+    thread, on global rank 0 for a tree on a device mesh)."""
+    arrays, dtypes, writer = _flatten(tree)
+    if not writer:
+        t = threading.Thread(target=lambda: None, daemon=True)
+        t.start()
+        return t
     t = threading.Thread(target=_write,
                          args=(ckpt_dir, step, arrays, dtypes, extra),
                          daemon=True)
@@ -138,18 +158,23 @@ def _tensor(arr, dtype_name):
 
 
 def restore(ckpt_dir: str, like, step: int | None = None,
-            device=None) -> tuple:
+            device=None, shardings=None) -> tuple:
     """Restore into the structure of ``like``; returns (tree, manifest).
 
-    ``like``'s leaves give the keys and the shapes (``meta`` tensors
-    will do); each restored leaf goes to ``device``, or to the device of
-    ``like``'s leaf (the CPU for a ``meta`` one).  A ``Params`` comes
-    back as a new ``Params``, trainable when ``like``'s was.
+    ``like``'s leaves give the keys and the (global) shapes (``meta``
+    tensors will do); each restored leaf goes to ``device``, or to the
+    device of ``like``'s leaf (the CPU for a ``meta`` one).
+    ``shardings``: an optional tree like ``like`` whose leaves are
+    ``(mesh, placements)`` pairs (``fault.shardings_for``) or None; a
+    leaf with a pair is laid out on that mesh as a ``DTensor`` (on the
+    mesh's device), which restores onto a mesh of another size than the
+    one that saved.  A ``Params`` comes back as a new ``Params``,
+    trainable when ``like``'s was.
     """
     data, manifest = _open(ckpt_dir, step)
     dtypes = manifest.get("dtypes", {})
 
-    def leaf(key, like_leaf):
+    def leaf(key, like_leaf, sharding):
         arr = data[key]
         shape = tuple(like_leaf.shape) if hasattr(like_leaf, "shape") \
             else np.shape(like_leaf)
@@ -157,6 +182,10 @@ def restore(ckpt_dir: str, like, step: int | None = None,
             raise ValueError(f"shape mismatch for {key}: "
                              f"{arr.shape} vs {shape}")
         t = _tensor(arr, dtypes.get(key))
+        if sharding is not None:
+            mesh, placements = sharding
+            return distribute_tensor(t.to(device or mesh.device_type), mesh,
+                                     placements)
         dev = device
         if dev is None:
             dev = getattr(like_leaf, "device", torch.device("cpu"))
@@ -164,20 +193,24 @@ def restore(ckpt_dir: str, like, step: int | None = None,
                 dev = torch.device("cpu")
         return t.to(dev)
 
-    def build(node, prefix):
+    def sub(sh, k):
+        return None if sh is None else sh[k]
+
+    def build(node, prefix, sh):
         if isinstance(node, Params):
-            out = Params(build(node.tree(), prefix))
+            out = Params(build(node.tree(), prefix, sh))
             if any(p.requires_grad for p in node.parameters()):
                 out.requires_grad_(True)
             return out
         if isinstance(node, dict):
-            return {k: build(v, f"{prefix}{k}/") for k, v in node.items()}
+            return {k: build(v, f"{prefix}{k}/", sub(sh, k))
+                    for k, v in node.items()}
         if isinstance(node, (list, tuple)):
-            return type(node)(build(v, f"{prefix}{i}/")
+            return type(node)(build(v, f"{prefix}{i}/", sub(sh, i))
                               for i, v in enumerate(node))
-        return leaf(prefix[:-1], node)
+        return leaf(prefix[:-1], node, sh)
 
-    return build(like, ""), manifest
+    return build(like, "", shardings), manifest
 
 
 def load_tree(ckpt_dir: str, step: int | None = None) -> tuple:

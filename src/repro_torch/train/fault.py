@@ -2,9 +2,11 @@
 device or a new process group's rank (elastic rescale), plus the
 straggler policy knobs shared with the ADMM protocol layer.
 
-Port of ``repro.train.fault``.  The reference re-shards the restored
-state under a smaller mesh; here every rank of a data-parallel group
-holds the whole state, so a survivor restores it onto its own device.
+Port of ``repro.train.fault``.  ``elastic_restore`` lays the restored
+state out on a device mesh of any size whose axes divide the specced
+dims (``shardings_for``), as the reference re-shards it under a smaller
+mesh; without a mesh, every rank of a data-parallel group holds the
+whole state, and a survivor restores it onto its own device.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import dataclasses
 
 from . import checkpoint as ckpt_mod
 from ..launch.mesh import dp_rank, rank_device
+from ..models import registry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -21,12 +24,26 @@ class StragglerPolicy:
     max_stale_rounds: int = 3
 
 
-def elastic_restore(ckpt_dir: str, like, device=None, step=None,
-                    group=None):
-    """Restore a checkpoint onto ``device``, or, with a process ``group``,
-    onto this rank's device of type ``device`` (its own card, or the
-    CPU).  ``like`` gives the structure (``meta`` tensors will do).
-    Returns (state, manifest)."""
+def shardings_for(mesh, pspecs):
+    """``(mesh, placements)`` for each spec of a spec tree (``None``
+    leaves stay None: restored whole on every rank)."""
+    return registry.map_tree(
+        lambda _, s: None if s is None else (mesh, registry.placements(s,
+                                                                       mesh)),
+        pspecs)
+
+
+def elastic_restore(ckpt_dir: str, like, mesh=None, pspecs=None, step=None,
+                    *, device=None, group=None):
+    """Restore a checkpoint onto ``mesh`` (any size whose axes divide the
+    dims ``pspecs`` shard; ``pspecs`` a spec tree like ``like``, e.g.
+    ``loop.state_pspecs``), or without a mesh onto ``device``, or, with
+    a process ``group``, onto this rank's device of type ``device`` (its
+    own card, or the CPU).  ``like`` gives the structure (``meta``
+    tensors will do).  Returns (state, manifest)."""
+    if mesh is not None:
+        return ckpt_mod.restore(ckpt_dir, like, step=step, device=device,
+                                shardings=shardings_for(mesh, pspecs))
     if group is not None:
         device = rank_device(device, dp_rank(group))
     return ckpt_mod.restore(ckpt_dir, like, step=step, device=device)

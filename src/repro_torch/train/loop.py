@@ -8,7 +8,11 @@ Port of ``repro.train.loop``:
   a process group of more than one rank (data parallelism, each rank on
   its rows of the global batch), gradients and loss are averaged across
   ranks before the update, where the reference's SPMD partitioning
-  inserts that all-reduce.
+  inserts that all-reduce.  On a device mesh (parameters and moments
+  ``DTensor``s, :func:`shard_train_state`; the batch a ``DTensor``
+  sharded over the data axes, ``TokenPipeline.next(mesh=...)``) DTensor's
+  sharding propagation inserts every collective, as GSPMD does for the
+  reference: loss, gradients and the global norm come out whole.
 * ``make_dp_compressed_step`` — the pure data-parallel step whose
   gradient all-reduce is the paper's Gamma quantizer with error feedback
   (``core.secure_agg``), over a ``torch.distributed`` process group
@@ -22,8 +26,12 @@ from __future__ import annotations
 
 from typing import Callable
 
+import contextlib
+
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from . import optimizer as opt_mod
 from .. import resolve_device
@@ -34,9 +42,43 @@ from ..models import registry
 
 def _grads(params) -> list:
     """Each leaf's gradient (zeros for a leaf the loss does not reach,
-    as ``jax.grad`` gives), in the parameters' order."""
-    return [p.grad if p.grad is not None else torch.zeros_like(p)
-            for p in params.parameters()]
+    as ``jax.grad`` gives), in the parameters' order; a ``DTensor``
+    gradient at its parameter's placements (a partial sum is reduced)."""
+    out = []
+    for p in params.parameters():
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        if isinstance(g, DTensor) and g.placements != p.placements:
+            g = g.redistribute(p.device_mesh, p.placements)
+        out.append(g)
+    return out
+
+
+def is_sharded(params) -> bool:
+    """Whether ``params`` lies on a device mesh (``DTensor`` leaves)."""
+    return isinstance(next(params.parameters()), DTensor)
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A metric as a plain tensor (a ``DTensor``'s full value)."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _microbatch(v, accum: int, i: int):
+    """Microbatch ``i`` of ``accum``: rows ``[i B / accum, (i + 1) B /
+    accum)`` of a plain batch, as the reference's reshape and scan take
+    them; of a ``DTensor`` batch, the same share of every rank's rows
+    (no collective).  The step's gradient, a mean over microbatches of
+    each one's mean, is the same when every row carries as many labels,
+    as the pipeline's do."""
+    if not isinstance(v, DTensor):
+        return v.reshape(accum, v.shape[0] // accum, *v.shape[1:])[i]
+    loc = v.to_local()
+    if loc.shape[0] % accum:
+        raise ValueError(f"{loc.shape[0]} rows on this rank do not split "
+                         f"into {accum} microbatches")
+    loc = loc.reshape(accum, loc.shape[0] // accum, *loc.shape[1:])[i]
+    return DTensor.from_local(loc, v.device_mesh, v.placements,
+                              run_check=False)
 
 
 def _require_trainable(params):
@@ -74,8 +116,7 @@ def make_train_step(cfg, opt_cfg: opt_mod.OptConfig, *, use_scan=True,
             return loss.detach(), _grads(params)
         l_sum = torch.zeros((), dtype=torch.float32, device=params.device)
         for i in range(accum):
-            mb = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])[i]
-                  for k, v in batch.items()}
+            mb = {k: _microbatch(v, accum, i) for k, v in batch.items()}
             loss = loss_of(params, mb)
             loss.backward()                  # adds into each .grad
             l_sum = l_sum + loss.detach()
@@ -84,15 +125,21 @@ def make_train_step(cfg, opt_cfg: opt_mod.OptConfig, *, use_scan=True,
     def train_step(state, batch):
         params = state["params"]
         _require_trainable(params)
+        sharded = is_sharded(params)
         params.zero_grad(set_to_none=True)
-        loss, grads = grads_of(params, batch)
-        _mean_over(group, grads + [loss])
-        params, opt_state, om = opt_mod.adamw_update(
-            grads, state["opt"], params, opt_cfg)
+        # plain tensors inside the models (positions, masks, the
+        # schedule's scalars) meet DTensors as replicated values
+        with implicit_replication() if sharded else contextlib.nullcontext():
+            loss, grads = grads_of(params, batch)
+            if not sharded:
+                _mean_over(group, grads + [loss])
+            params, opt_state, om = opt_mod.adamw_update(
+                grads, state["opt"], params, opt_cfg)
         params.zero_grad(set_to_none=True)
         new_state = {"params": params, "opt": opt_state,
                      "step": state["step"] + 1}
-        return new_state, {"loss": loss, **om}
+        return new_state, {"loss": _whole(loss),
+                           **{k: _whole(v) for k, v in om.items()}}
 
     return train_step
 
@@ -105,6 +152,29 @@ def init_train_state(cfg, seed: int = 0, device=None) -> dict:
     params.requires_grad_(True)
     return {"params": params, "opt": opt_mod.init_opt_state(params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def state_pspecs(specs) -> dict:
+    """The spec tree of a train state whose parameters have ``specs``:
+    the moments as the parameters, ``count`` and ``step`` None (every
+    rank holds them whole)."""
+    return {"params": specs, "opt": {"m": specs, "v": specs, "count": None},
+            "step": None}
+
+
+def shard_train_state(state: dict, mesh, specs) -> dict:
+    """``state`` on ``mesh``: parameters and the AdamW moments as
+    ``DTensor``s at the placements of ``specs`` (``registry.
+    param_pspecs``), ``count`` and ``step`` as they are (every rank
+    holds them).  After ``convert.train_state_from_numpy`` this carries
+    the reference's train state onto a mesh."""
+    opt = state["opt"]
+    return {"params": registry.distribute_params(state["params"], mesh,
+                                                 specs),
+            "opt": {"m": registry.distribute_params(opt["m"], mesh, specs),
+                    "v": registry.distribute_params(opt["v"], mesh, specs),
+                    "count": opt["count"]},
+            "step": state["step"]}
 
 
 # ---------------------------------------------------------------------------

@@ -601,12 +601,17 @@ def test_train_cli_runs_as_a_module():
 
 
 def test_train_cli_defaults_to_the_card_and_refuses_a_model_axis(capsys):
+    """The card by default; a model axis is taken now (``--mesh D,M``,
+    tests/test_torch_sharding_dist.py), and a mesh of three axes or an
+    empty axis is refused."""
     assert train_cli.build_parser().parse_args(["--arch", "x"]).device \
         == "cuda"
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="cuda"):
             train_cli.main(["--arch", "yi_9b", "--reduced", "--steps", "1"])
-    with pytest.raises(SystemExit, match="item 3"):
-        train_cli.main(["--device", "cpu", "--arch", "yi_9b", "--reduced",
-                        "--mesh", "4,2"])
-    assert train_cli.data_ranks("4,1") == 4
+    for bad in ("4,2,1", "0,2"):
+        with pytest.raises(SystemExit, match="data,model"):
+            train_cli.main(["--device", "cpu", "--arch", "yi_9b", "--reduced",
+                            "--mesh", bad])
+    assert train_cli.mesh_dims("4,1") == (4, 1)
+    assert train_cli.mesh_dims("4") == (4,)
