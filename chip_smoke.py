@@ -162,11 +162,26 @@ package, and:
     ``--arch qwen2_moe_a27b --shape train_4k`` as two subprocesses run
     side by side: every cell ok or skipped, each cell's peak per card
     beside the H100's 80 GB, its bottleneck and its three terms;
-15. prints the kernel table as one JSON line (each body's launches on the
-    main path — for the per-row bodies on S1 — on the Barrett arm and on
-    each path of steps 9, 10 and 11; the LM stack, serving, training
-    and sharding have no kernel of their own), then as its last line
-    ``{"ok": true, "device": {...}}``.
+15. runs the port's entry points and the batch split: E, the six
+    examples (``repro_torch.examples``: quickstart, edge_network_sim,
+    workload_zoo, power_grid_reconstruction, serve_batched,
+    train_lm_secure in its smoke mode) through their ``main`` on the card
+    in this process, each with the launch counts set to 0 just before it
+    and read just after: each passes its own asserts and prints ``OK``,
+    the gold examples (quickstart, every workload_zoo family) launch the
+    three main-path bodies and their histories equal their plain arms'
+    bit for bit, with each example's wall time; M, ``kernel_mesh()`` is
+    None and ``device_kind()`` has no ``xN`` suffix on the one card, then
+    one main-path round's batched ops (enc of 192 plaintexts, a
+    192 x 192 matvec, dec of its rows; 2048-bit key) run whole and split
+    over ``[cuda:0, cuda:0]``: equal ciphertexts, plaintexts and rng
+    state, and every launch made inside a CRT body made again for each
+    chunk at half the batch;
+16. prints the kernel table as one JSON line (each body's launches on the
+    main path — for the per-row bodies on S1 — on the Barrett arm, on
+    each path of steps 9, 10 and 11, in the examples and whole/split in
+    M; the LM stack, serving, training and sharding have no kernel of
+    their own), then as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
 result.  Exact integer work: the tolerance of every comparison is zero;
@@ -174,6 +189,7 @@ the LM checks' tolerances are stated in steps 12, 13 and 14.
 """
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import random
@@ -2991,6 +3007,159 @@ def run_shard_phase(dev, t1, snapshot):
     return sh
 
 
+
+# ---------------------------------------------------------------------------
+# The port's examples (E) and the multi-card batch split (M)
+# ---------------------------------------------------------------------------
+
+#: E: the six examples, in the reference's order, each through its main
+EXAMPLES = ("quickstart", "edge_network_sim", "workload_zoo",
+            "power_grid_reconstruction", "serve_batched", "train_lm_secure")
+#: M: the split rehearsed over this card twice
+SPLIT_CARDS = 2
+
+
+def _gold_equals_plain(protocol, res, cfg, inst, **kw):
+    plain = protocol.run_protocol(inst.A, inst.y,
+                                  replace(cfg, cipher="plain"), **kw)
+    assert res.history.tobytes() == plain.history.tobytes(), cfg.workload
+
+
+def run_examples_e(build, protocol):
+    """E: ``python -m repro_torch.examples.<name>``'s ``main`` for each
+    of the six examples on the card, in this process (``train_lm_secure``
+    in its smoke mode), each with the launch counts set to 0 just before
+    it and read just after: each passes its own asserts and prints ``OK``;
+    the gold examples' histories equal their plain arms' bit for bit."""
+    import importlib
+    res = {}
+    for name in EXAMPLES:
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        out = io.StringIO()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            got = mod.main([])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counted = dict(build.LAUNCHES)
+        launches = {b: n for b, n in counted.items() if n}
+        lines = out.getvalue().splitlines()
+        assert lines and lines[-1].startswith("OK"), (name, lines[-3:])
+        for line in lines:
+            log(f"  {name}| {line}")
+        if name == "quickstart":
+            _gold_equals_plain(protocol, got, got.cfg, got.inst)
+        elif name == "workload_zoo":
+            for row in got:
+                _gold_equals_plain(protocol, row["result"], row["cfg"],
+                                   row["inst"], workload=row["workload"])
+        if name in ("quickstart", "workload_zoo"):
+            check_launches(f"example {name}", counted, MAIN_PATH_BODIES)
+        res[name] = {"wall_s": wall, "launches": launches}
+        log(f"  {name}: OK in {wall:.2f} s; launches {json.dumps(launches)}"
+            + ("; gold history equals the plain arm's"
+               if name in ("quickstart", "workload_zoo") else ""))
+    return res
+
+
+def run_split_m(key, build, pb, dispatch):
+    """M: on one card ``kernel_mesh`` is None and ``device_kind`` has no
+    ``xN`` suffix; then one main-path round's batched ops (enc of Nk
+    plaintexts, the (Nk, Nk) matvec, dec of its Nk rows) run whole and
+    split over ``[cuda:0] * SPLIT_CARDS``: equal ciphertexts, plaintexts
+    and rng state, and every launch made inside a CRT body made again
+    per chunk (batch / SPLIT_CARDS, count x SPLIT_CARDS)."""
+    from collections import Counter
+    from repro_torch.launch import mesh
+    assert mesh.kernel_mesh() is None, mesh.kernel_mesh()
+    kind = dispatch.device_kind()
+    assert kind == "torch-cuda-" + torch.cuda.get_device_name(0).replace(
+        "/", "-"), kind
+    bk = pb.make_batch_key(key, DEVICE)
+    rng = np.random.default_rng(SEED)
+    ms = [int(v) for v in rng.integers(0, 2 ** 62, NK)]
+    Ks = rng.integers(0, 2 ** 50, (1, NK, NK)).astype(object)
+
+    def round_ops():
+        r = random.Random(SEED)
+        ct = pb.enc_ct(bk, ms, r)
+        mv = pb.matvec_many(bk, Ks, [ct])[0]
+        out = (ct.to_ints(), mv.to_ints(), pb.dec_vec(bk, mv), r.getstate())
+        torch.cuda.synchronize()
+        return out
+
+    inside = Counter()
+    real_split = pb._run_split
+
+    def recording_split(body, *arrays, group=1):
+        before = Counter(build.SHAPE_LAUNCHES)
+        out = real_split(body, *arrays, group=group)
+        inside.update(Counter(build.SHAPE_LAUNCHES) - before)
+        return out
+
+    round_ops()                                   # warm both paths' shapes
+    res = {"kernel_mesh": None, "device_kind": kind}
+    build.reset_launches()
+    pb._run_split = recording_split
+    try:
+        t0 = time.perf_counter()
+        whole = round_ops()
+        res["whole_s"] = time.perf_counter() - t0
+    finally:
+        pb._run_split = real_split
+    whole_shapes = Counter(build.SHAPE_LAUNCHES)
+    whole_launches = dict(build.LAUNCHES)
+    real_mesh = mesh.kernel_mesh
+    mesh.kernel_mesh = lambda device=None: [torch.device("cuda", 0)] \
+        * SPLIT_CARDS
+    try:
+        round_ops()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        split = round_ops()
+        res["split_s"] = time.perf_counter() - t0
+    finally:
+        mesh.kernel_mesh = real_mesh
+    assert split == whole, "the split round differs from the whole one"
+    want = Counter()
+    for (body, B, k), n in whole_shapes.items():
+        want[(body, B, k)] += n - inside[(body, B, k)]
+        want[(body, B // SPLIT_CARDS, k)] += SPLIT_CARDS * inside[
+            (body, B, k)]
+    got = Counter(build.SHAPE_LAUNCHES)
+    assert +got == +want, (sorted(got.items()), sorted(want.items()))
+    for body in ("modexp[montgomery,win4]", "modexp_fixed[montgomery]"):
+        assert build.LAUNCHES[body] == SPLIT_CARDS * whole_launches[body] \
+            > 0, (body, build.LAUNCHES[body], whole_launches[body])
+    res["launches"] = {b: [whole_launches[b], build.LAUNCHES[b]]
+                       for b in whole_launches if whole_launches[b]}
+    res["inside"] = {f"{b} B={B} k={k}": n for (b, B, k), n in
+                     sorted(inside.items())}
+    log(f"  one card: kernel_mesh() is None, device_kind() = {kind}")
+    log(f"  one main-path round's batched ops (Nk = {NK}, {KEY_BITS}-bit "
+        f"key) whole and split over {SPLIT_CARDS} x cuda:0: ciphertexts, "
+        f"plaintexts and rng state equal; launches [whole, split] "
+        f"{json.dumps(res['launches'])}; launches inside the CRT bodies "
+        f"(whole) {json.dumps(res['inside'])}; wall whole "
+        f"{res['whole_s']:.3f} s, split {res['split_s']:.3f} s")
+    return res
+
+
+def run_port_phase(key, build, pb, protocol, dispatch):
+    t0 = time.perf_counter()
+    ex = {}
+    log("examples E: python -m repro_torch.examples.<name>'s main for each "
+        "of the six, on the card:")
+    ex["e"] = run_examples_e(build, protocol)
+    log("multi-card M: kernel_mesh and device_kind on one card, and the "
+        "batch split rehearsed over one card twice:")
+    ex["m"] = run_split_m(key, build, pb, dispatch)
+    ex["phase_s"] = time.perf_counter() - t0
+    log(f"  examples and split phase: {ex['phase_s']:.1f} s")
+    return ex
+
+
 def main():
     require_card()
     sys.path.insert(0, os.path.join(REPO, "src"))
@@ -3154,6 +3323,10 @@ def main():
     del t1_snapshot
     log("shard: " + json.dumps(shard))
 
+    # the examples and the batch split, after every earlier phase
+    port = run_port_phase(key, build, pb, protocol, dispatch)
+    log("port: " + json.dumps(port))
+
     log(f"script: {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
@@ -3179,6 +3352,9 @@ def main():
                       for path in RUNTIME_PATHS})
         entry.update({f"{path}_launches": serve_launches[path][body]
                       for path in SERVE_PATHS})
+        entry["examples_launches"] = sum(
+            e["launches"].get(body, 0) for e in port["e"].values())
+        entry["split_launches"] = port["m"]["launches"].get(body, [0, 0])
         timed = [r for r in shapes if r["body"] == body]
         if len(timed) > 1:                     # each main-path shape
             entry["shapes"] = [

@@ -225,17 +225,17 @@ def low_limbs(a: torch.Tensor, k: int) -> torch.Tensor:
 
 def _cond_sub(r: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     """r - m if r >= m else r (m zero-padded to r's width)."""
-    m = fit(m, r.shape[-1])
-    geq = (compare(r, m) >= 0)[..., None]
-    return torch.where(geq, sub(r, m), r.to(torch.int32))
+    return _csub(r, m).to(torch.int32)
 
 
 def _csub(r: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
-    """int64 r - m if r >= m else r, for r with a top limb below 2^16 - 1
-    over m's width: then r - m wraps (top limb 2^16 - 1) exactly when
-    r < m, so no separate comparison is needed."""
-    d = _norm(r - fit(_i64(m), r.shape[-1]))
-    return torch.where(d[..., -1:] != LIMB_MASK, d, r)
+    """int64 r - m if r >= m else r, for normalized r and m (m
+    zero-padded to r's width).  m is subtracted only where r >= m: a
+    difference that wrapped below 0 would carry its borrow through every
+    limb above, one normalizing round per limb."""
+    m = fit(_i64(m), r.shape[-1])
+    geq = (compare(r, m) >= 0)[..., None]
+    return _norm(_i64(r) - torch.where(geq, m, 0))
 
 
 def _barrett(x: torch.Tensor, m: torch.Tensor,

@@ -11,9 +11,9 @@ enter or leave.
 
 Bit-exactness: every function returns exactly what the scalar gold
 functions return for the same inputs and the same ``random.Random``
-stream.  A :class:`BatchKey` names the device its tensors live on; the
-reference's multi-chip batch sharding (``_shard_batch``) is the identity
-on one card and is left out.
+stream.  A :class:`BatchKey` names the device its tensors live on.  On a
+box of several cards the CRT bodies split their batch over them
+(:func:`_shard_batch`); on one card or the CPU they run whole.
 
 Preconditions shared by all batched ModExps: bases must be units mod n
 (ciphertexts and blinding factors are).  Negative exponents are handled
@@ -22,6 +22,7 @@ the ladder runs on ``-e``.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import functools
 import random
@@ -87,20 +88,94 @@ def _norm_exps(exps, batch: int) -> list[int]:
     return exps
 
 
-def _halves(bk: BatchKey, bp, bq, exps, scalar_e, fixed: bool):
-    """x' = bp^e mod p^2, x'' = bq^e mod q^2, recombined mod n^2."""
-    key, vk = bk.key, bk.vk
-    if fixed and scalar_e is not None:
-        xp, xq = ops.modexp_fixed_pair(
-            (bp, bq), (scalar_e % key.phi_p2, scalar_e % key.phi_q2),
-            (vk.pack_p2, vk.pack_q2))
+class Shards(list):
+    """Per-card argument tuples of a split batch: ``(card, chunks)``."""
+
+
+def _shard_batch(*arrays, group: int = 1):
+    """Lay ``(B, ...)`` operand tensors across the cards of
+    :func:`repro_torch.launch.mesh.kernel_mesh`: card i gets the i-th
+    equal chunk of every array's leading axis, in whole ``group``s of
+    rows, copied to it.
+
+    On one card or the CPU (``kernel_mesh`` is ``None``) the arrays come
+    back untouched, as one array when one was given, as in the
+    reference; so does a batch whose groups the card count does not
+    divide.  Otherwise the result is a :class:`Shards`.  Every limb
+    kernel is batch-elementwise, so each card's chunk runs the whole
+    ladder with no traffic between cards until :func:`_run_split`
+    gathers the results.
+    """
+    from ..launch import mesh as mesh_mod
+    cards = mesh_mod.kernel_mesh(arrays[0].device)
+    groups = int(arrays[0].shape[0]) // group
+    if cards is None or groups == 0 or groups % len(cards):
+        return arrays if len(arrays) != 1 else arrays[0]
+    rows = groups // len(cards) * group
+    return Shards(
+        (card, tuple(x[i * rows:(i + 1) * rows].to(card, non_blocking=True)
+                     for x in arrays))
+        for i, card in enumerate(cards))
+
+
+def _on_card(body, card: torch.device, chunks: tuple) -> torch.Tensor:
+    with torch.cuda.device(card):
+        return body(*chunks)
+
+
+def _run_split(body, *arrays, group: int = 1) -> torch.Tensor:
+    """``body(*arrays)``, each card running it on its chunk, the results
+    concatenated on the first array's device; whole where
+    :func:`_shard_batch` leaves the batch whole.  Cards run their chunks
+    from a thread each, so their launches overlap (CPU devices, which
+    only rehearse the split, take their chunks in turn)."""
+    shards = _shard_batch(*arrays, group=group)
+    if not isinstance(shards, Shards):
+        return body(*arrays)
+    if shards[0][0].type == "cuda":
+        with concurrent.futures.ThreadPoolExecutor(len(shards)) as pool:
+            outs = list(pool.map(lambda s: _on_card(body, *s), shards))
     else:
-        ep = [e % key.phi_p2 for e in exps]
-        eq = [e % key.phi_q2 for e in exps]
-        le = max(1, max(bi.n_limbs_for(e) for e in ep + eq))
-        xp = ops.modexp(bp, _limbs(bk, ep, le), vk.pack_p2)
-        xq = ops.modexp(bq, _limbs(bk, eq, le), vk.pack_q2)
-    return pv.crt_combine_batch(vk, xp, xq)
+        outs = [body(*chunks) for _, chunks in shards]
+    home = arrays[0].device
+    return torch.cat([o.to(home) for o in outs])
+
+
+def _crt_body(bk: BatchKey, scalar_e, fixed: bool, then=None):
+    """The CRT body over (bp, bq) or (bp, ep, bq, eq) limb tensors:
+    x' = bp^e mod p^2, x'' = bq^e mod q^2, recombined mod n^2, then
+    ``then`` (the matvec's product tree) on the result."""
+    key, vk = bk.key, bk.vk
+    packs = (vk.pack_p2, vk.pack_q2)
+
+    def body(*args):
+        if fixed and scalar_e is not None:
+            xp, xq = ops.modexp_fixed_pair(
+                args, (scalar_e % key.phi_p2, scalar_e % key.phi_q2), packs)
+        else:
+            bp, ep, bq, eq = args
+            xp = ops.modexp(bp, ep, vk.pack_p2)
+            xq = ops.modexp(bq, eq, vk.pack_q2)
+        x = pv.crt_combine_batch(vk, xp, xq)
+        return x if then is None else then(x)
+    return body
+
+
+def _halves(bk: BatchKey, bp, bq, exps, scalar_e, fixed: bool,
+            group: int = 1, then=None):
+    """x' = bp^e mod p^2, x'' = bq^e mod q^2, recombined mod n^2 (and
+    ``then`` applied), split over the cards in whole ``group``s of rows
+    (:func:`_run_split`).  Exponent limbs size to the whole batch's
+    maximum after the phi reduction."""
+    key = bk.key
+    body = _crt_body(bk, scalar_e, fixed, then)
+    if fixed and scalar_e is not None:
+        return _run_split(body, bp, bq, group=group)
+    ep = [e % key.phi_p2 for e in exps]
+    eq = [e % key.phi_q2 for e in exps]
+    le = max(1, max(bi.n_limbs_for(e) for e in ep + eq))
+    return _run_split(body, bp, _limbs(bk, ep, le), bq, _limbs(bk, eq, le),
+                      group=group)
 
 
 def modexp_crt_limbs(bk: BatchKey, bases: Sequence[int], exps,
@@ -263,11 +338,15 @@ def matvec_many(bk: BatchKey, Ks, cs_list: Sequence) -> list:
             raise ValueError(f"ciphertext vector {b} has {len(row)} != {N}")
     exps = _norm_exps(Ks.reshape(-1), B * M * N)
     L2 = vk.pack_n2.L16
+
+    def tree(powed):   # (rows * N, L2) -> (rows, L2)
+        return pv.mul_tree(vk, powed.reshape(-1, N, L2))
+
     if any(e < 0 for e in exps):
         rows = [int(c) for row in cs_list for c in row]  # materializes CTs
         bases = [rows[b * N + j] for b in range(B)
                  for _ in range(M) for j in range(N)]
-        powed = modexp_crt_limbs(bk, bases, exps)
+        out = tree(modexp_crt_limbs(bk, bases, exps))
     else:
         if ct_in:
             c = torch.cat([c.limbs for c in cs_list], dim=0)
@@ -283,8 +362,10 @@ def matvec_many(bk: BatchKey, Ks, cs_list: Sequence) -> list:
             return x.expand(x.shape[0], M, N, x.shape[-1]).reshape(
                 -1, x.shape[-1])
 
-        powed = _halves(bk, bcast(bp), bcast(bq), exps, None, False)
-    out = pv.mul_tree(vk, powed.reshape(-1, N, L2))
+        # a card takes whole output rows: their N exponents each and
+        # their share of the product tree
+        out = _halves(bk, bcast(bp), bcast(bq), exps, None, False, group=N,
+                      then=tree)
     if ct_in:
         return [CipherTensor(bk, out[b * M:(b + 1) * M]) for b in range(B)]
     ints = bi.to_ints(out)

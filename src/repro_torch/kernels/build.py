@@ -69,6 +69,7 @@ SHAPE_LAUNCHES: collections.Counter = collections.Counter()
 
 _FUNCS: dict = {}
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()   # a split batch launches from a thread a card
 
 
 def reset_launches() -> None:
@@ -79,8 +80,9 @@ def reset_launches() -> None:
 
 def count_launch(body: str, B: int, k: int) -> None:
     """One launch of ``body`` over B integers of k words."""
-    LAUNCHES[body] += 1
-    SHAPE_LAUNCHES[(body, B, k)] += 1
+    with _COUNT_LOCK:
+        LAUNCHES[body] += 1
+        SHAPE_LAUNCHES[(body, B, k)] += 1
 
 
 def nvcc_path() -> str:

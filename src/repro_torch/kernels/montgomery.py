@@ -53,12 +53,24 @@ def exp_windows(e: int) -> tuple[int, ...]:
 
 def redc(t: torch.Tensor, dm: cm.DeviceModulus) -> torch.Tensor:
     """t (B, <=2W) normalized * R^{-1} mod m -> (B, W) int64 canonical;
-    needs t < R m."""
+    needs t < R m.
+
+    The low W limbs of t + u m are 0 by construction, so they are not
+    normalized (their carries would ripple through every one of them):
+    their carry into limb W is the exact quotient of their value by R,
+    read off the top two coefficients.  Every coefficient is below
+    C = W 2^32 + 2^16, so the coefficients below those two add less than
+    C / 2^48 < 1 to it (for W < 2^15), and the carry is the ceiling of
+    (s_{W-1} 2^16 + s_{W-2}) / 2^32.
+    """
     W = dm.W
     t = bi.fit(bi._i64(t), 2 * W + 1)
-    u = bi._mul(t[..., :W], dm.minv, W)                  # (t mod R) m' mod R
-    s = bi._norm(t + bi.fit(bi._conv(u, dm.mw), 2 * W + 1))  # t + u m < 2Rm
-    return bi._csub(s[..., W:], dm.mw)[..., :W]          # (t + u m) / R
+    u = bi._norm(bi._conv(t[..., :W], dm.minv)[..., :W])  # (t mod R) m' mod R
+    s = t + bi.fit(bi._conv(u, dm.mw), 2 * W + 1)          # t + u m < 2Rm
+    top = (s[..., W - 1] << bi.LIMB_BITS) + s[..., W - 2]
+    high = s[..., W:].clone()
+    high[..., 0] += (top + (1 << 2 * bi.LIMB_BITS) - 1) >> 2 * bi.LIMB_BITS
+    return bi._csub(bi._norm(high), dm.mw)[..., :W]        # (t + u m) / R
 
 
 def montmul(a: torch.Tensor, b: torch.Tensor,

@@ -36,8 +36,10 @@ Per cell this script:
      - the collectives by kind (``roofline.collective_bytes``);
   4. prices them with ``roofline.analyze`` at the H100's peaks.
 
-The reference's ``lower_s``/``compile_s`` have no counterpart: the port
-reports ``build_s`` (building the cell's state and inputs) and
+Each cell that ran names the torch release that produced it (``torch``):
+DTensor's strategies, and so the per-card numbers, change between
+releases.  The reference's ``lower_s``/``compile_s`` have no counterpart:
+the port reports ``build_s`` (building the cell's state and inputs) and
 ``run_s`` (running the step under the meter).  Its layers, flash
 attention and recurrent scans are Python loops, so every trip is
 counted: the reference's ``cost_extrapolation`` and loop corrections
@@ -193,12 +195,12 @@ class StepMeter(TorchDispatchMode):
 
 
 
-def _act_placements(mesh):
+def _act_placements(mesh, model_dim: int = 2):
     """The reference's residual-stream sharding: batch over the DP axes,
-    hidden over ``model``."""
+    hidden (``model_dim`` 2; 1 shards the sequence) over ``model``."""
     from torch.distributed.tensor import Replicate, Shard
     dpx = mesh_mod.dp_axes(mesh)
-    return [Shard(0) if a in dpx else Shard(2) if a == "model"
+    return [Shard(0) if a in dpx else Shard(model_dim) if a == "model"
             else Replicate() for a in mesh.mesh_dim_names]
 
 
@@ -230,11 +232,13 @@ def _inputs(stand_ins, specs, mesh):
     return registry.map_tree(one, stand_ins)
 
 
-def build_train_cell(cfg, sh, mesh, accum=1):
+def build_train_cell(cfg, sh, mesh, accum=1, remat=True, act_dim=2):
     """(run, the state and inputs it holds) for a train cell of shape
-    ``sh`` (a ``registry.SHAPES`` entry)."""
+    ``sh`` (a ``registry.SHAPES`` entry); the residual stream's ``model``
+    split is on dimension ``act_dim`` (``None``: no constraint)."""
     mesh_shape = mesh_mod.mesh_shape_dict(mesh)
-    L.set_activation_sharding(mesh, _act_placements(mesh))
+    if act_dim is not None:
+        L.set_activation_sharding(mesh, _act_placements(mesh, act_dim))
     params, specs = _params(cfg, mesh, trainable=True)
     state = {"params": params, "opt": opt_mod.init_opt_state(params),
              "step": torch.zeros((), dtype=torch.int32, device="meta")}
@@ -243,7 +247,7 @@ def build_train_cell(cfg, sh, mesh, accum=1):
     batch = _inputs(stand_ins, registry.input_shardings(
         cfg, sh, stand_ins, mesh_mod.dp_axes(mesh), mesh_shape),
         mesh)
-    step = loop_mod.make_train_step(cfg, opt_mod.OptConfig(), remat=True,
+    step = loop_mod.make_train_step(cfg, opt_mod.OptConfig(), remat=remat,
                                     accum=accum)
     return (lambda: step(state, batch)), (state, batch)
 
@@ -336,6 +340,7 @@ def run_cell(arch: str, shape_name: str, mesh, *, report: dict,
                               coll, n_dev, mf)
         entry = {
             "status": "ok",
+            "torch": torch.__version__,
             "kind": sh["kind"],
             "build_s": round(t_build, 1),
             "run_s": round(t_run, 1),
@@ -366,7 +371,8 @@ def run_cell(arch: str, shape_name: str, mesh, *, report: dict,
               f"tx={rl.t_collective:.3e}s)", flush=True)
     except Exception as e:  # noqa: BLE001 — a failing cell is a bug report
         report[key] = {"status": "error", "error": f"{type(e).__name__}: {e}",
-                       "trace": traceback.format_exc()[-2000:]}
+                       "trace": traceback.format_exc()[-2000:],
+                       "torch": torch.__version__}
         print(f"[FAIL] {key}: {type(e).__name__}: {e}", flush=True)
     finally:
         L.set_activation_sharding(None)

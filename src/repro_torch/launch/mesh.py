@@ -8,26 +8,51 @@ default group (``("data", "model")``: FSDP and batch on ``data``, tensor
 and expert parallelism on ``model``), the reference's ``jax.make_mesh``;
 :func:`fake_group` forms a group of any size in one process, whose
 collectives move nothing, for the dry-run (``launch.dryrun``), as the
-reference's 512 placeholder devices do.  The reference's
-``kernel_mesh`` (the crypto kernels' batch split over cards) is not
-ported.
+reference's 512 placeholder devices do.  :func:`kernel_mesh` lists the
+cards the crypto kernels' batches split over
+(``core.paillier_batch._shard_batch``).
+
+A group of more than one rank meets at a TCP store that the process
+launching the ranks serves (:func:`serve_store`, as ``torchrun``'s agent
+does): its port stays bound from before the first rank starts until
+after the last has exited, so no other group can take it and no rank's
+exit takes the store from a peer still tearing down.
 """
 from __future__ import annotations
 
 import contextlib
-import socket
+import datetime
 
 import torch
 import torch.distributed as dist
 
 from .. import resolve_device
 
+HOST = "127.0.0.1"
+STORE_TIMEOUT = datetime.timedelta(seconds=300)
 
-def free_port() -> int:
-    """A TCP port on localhost that was free a moment ago."""
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+
+@contextlib.contextmanager
+def serve_store():
+    """Serve a TCP store on localhost for the ``with`` block, on a port
+    the system picks; yields the port, which the ranks pass to
+    :func:`process_group`."""
+    store = dist.TCPStore(HOST, 0, None, True, STORE_TIMEOUT,
+                          wait_for_workers=False)
+    try:
+        yield store.port
+    finally:
+        del store
+
+
+def launch_ranks(fn, world: int, args: tuple = ()) -> None:
+    """Run ``fn(rank, *args, port)`` in ``world`` spawned processes, one
+    per rank, around a store this process serves; returns when every
+    rank has exited (raises if one failed)."""
+    import torch.multiprocessing as mp
+    with serve_store() as port:
+        mp.start_processes(fn, args=(*args, port), nprocs=world,
+                           start_method="spawn")
 
 
 def rank_device(device, rank: int = 0) -> torch.device:
@@ -45,24 +70,45 @@ def rank_device(device, rank: int = 0) -> torch.device:
 @contextlib.contextmanager
 def process_group(device=None, world: int = 1, rank: int = 0,
                   port: int | None = None):
-    """Join (or, for one rank, form) the default process group over
-    ``tcp://127.0.0.1:<port>`` for the ``with`` block, NCCL for a card
-    and gloo for the CPU; yields the group and tears it down after.  A
-    card's rank binds its own card first."""
+    """Join the default process group for the ``with`` block, NCCL for a
+    card and gloo for the CPU; yields the group and tears it down after.
+
+    The ranks of a group of more than one meet at the store that
+    :func:`serve_store` serves on ``port``; one rank serves its own.  A
+    card's rank binds its own card first.  Every rank waits at a barrier
+    before the teardown, so none closes its connections while a peer is
+    still in a collective."""
     if world > 1 and port is None:
-        raise ValueError("every rank of a group of more than one needs "
-                         "the same port")
+        raise ValueError("the ranks of a group of more than one meet at "
+                         "the port of a store from serve_store()")
     dev = rank_device(device, rank)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    dist.init_process_group(
-        "nccl" if dev.type == "cuda" else "gloo",
-        init_method=f"tcp://127.0.0.1:{port or free_port()}",
-        world_size=world, rank=rank)
+    store = (dist.TCPStore(HOST, port, None, False, STORE_TIMEOUT)
+             if world > 1 else
+             dist.TCPStore(HOST, 0, None, True, STORE_TIMEOUT,
+                           wait_for_workers=False))
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            store=store, world_size=world, rank=rank)
     try:
         yield dist.group.WORLD
+        if world > 1:
+            dist.barrier()
     finally:
         dist.destroy_process_group()
+
+
+def kernel_mesh(device=None) -> list | None:
+    """The cards the crypto kernels' element batches split over
+    (``core.paillier_batch._shard_batch``): every local card when there
+    are more than one, else ``None``, as on the CPU (the reference's
+    ``kernel_mesh`` is ``None`` on one device)."""
+    if torch.device("cuda" if device is None else device).type != "cuda":
+        return None
+    n = torch.cuda.device_count()
+    if n <= 1:
+        return None
+    return [torch.device("cuda", i) for i in range(n)]
 
 
 @contextlib.contextmanager

@@ -18,7 +18,6 @@ import argparse
 import time
 
 import torch
-import torch.multiprocessing as mp
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_reduced
@@ -149,8 +148,7 @@ def main(argv=None):
     if device.type == "cuda" and torch.cuda.device_count() < world:
         raise SystemExit(f"train: --mesh {world} needs {world} cards, "
                          f"{torch.cuda.device_count()} present")
-    mp.start_processes(_rank_main, args=(args, dims, mesh.free_port()),
-                       nprocs=world, start_method="spawn")
+    mesh.launch_ranks(_rank_main, world, (args, dims))
 
 
 if __name__ == "__main__":

@@ -71,15 +71,20 @@ def device_kind(device=None) -> str:
 
     Throughput tables are device-specific — the limb kernels that lose to
     Python-int pow on a CPU win on a card — so entries measured on one
-    device kind must never price another's dispatch decisions.  The
-    reference appends an ``xN`` chip-count suffix because its batched ops
-    shard across the local chips; the port's run on one card, so it has
-    none.
+    device kind must never price another's dispatch decisions.
+
+    A box of N > 1 cards gets an ``xN`` suffix (``torch-cuda-<card>x4``),
+    as the reference's multi-chip hosts do: the batched ops split their
+    leading axis over the cards (``launch.mesh.kernel_mesh``), so measured
+    throughput scales with the card count and an N-card table must not
+    price a one-card box.
     """
+    from ..launch.mesh import kernel_mesh
     dev = resolve_device(device)
-    if dev.type == "cpu":
-        return "torch-cpu"
-    return "torch-cuda-" + torch.cuda.get_device_name(dev).replace("/", "-")
+    kind = "torch-cpu" if dev.type == "cpu" else "torch-cuda-" \
+        + torch.cuda.get_device_name(dev).replace("/", "-")
+    cards = kernel_mesh(dev)
+    return f"{kind}x{len(cards)}" if cards else kind
 
 
 def _entry_key(backend: str, key_bits: int, batch: int, kind: str) -> str:

@@ -37,7 +37,7 @@ from repro.models import registry as ref_registry
 from repro.train import checkpoint as ref_ckpt
 from repro.train import loop as ref_loop
 from repro.train.optimizer import OptConfig as RefOptConfig
-from repro_torch.launch.mesh import free_port
+from repro_torch.launch.mesh import serve_store
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 4
@@ -63,6 +63,16 @@ torch.set_num_threads(1)
 """
 
 
+def ranks_report(procs, out, tail=1500) -> str:
+    """Every rank's return code and the tail of its log."""
+    parts = []
+    for r, p in enumerate(procs):
+        with open(os.path.join(out, f"rank{r}.log")) as f:
+            parts.append(f"--- rank {r}: returncode {p.returncode} ---\n"
+                         + f.read()[-tail:])
+    return "\n".join(parts)
+
+
 def run_ranks(body: str, out, world=WORLD, timeout=300):
     """Run ``body`` on ``world`` gloo ranks (inside ``mesh.process_group``
     as ``g``); each rank's output goes to ``out/rank<r>.log`` and its
@@ -70,29 +80,28 @@ def run_ranks(body: str, out, world=WORLD, timeout=300):
     code = PRELUDE + "with mesh.process_group('cpu', W, R, " \
         "int(os.environ['PORT'])) as g:\n" \
         + textwrap.indent(textwrap.dedent(body), "    ")
-    port = free_port()
     procs, logs = [], []
-    for r in range(world):
-        env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
-                   RANK=str(r), WORLD=str(world), PORT=str(port),
-                   OUT=str(out), OMP_NUM_THREADS="1")
-        log = open(os.path.join(out, f"rank{r}.log"), "w")
-        logs.append(log)
-        procs.append(subprocess.Popen([sys.executable, "-c", code], env=env,
-                                      stdout=log, stderr=subprocess.STDOUT,
-                                      cwd=REPO))
-    try:
-        for p in procs:
-            p.wait(timeout=timeout)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-        for log in logs:
-            log.close()
-    for r, p in enumerate(procs):
-        assert p.returncode == 0, open(os.path.join(out, f"rank{r}.log")
-                                       ).read()[-4000:]
+    with serve_store() as port:
+        for r in range(world):
+            env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+                       RANK=str(r), WORLD=str(world), PORT=str(port),
+                       OUT=str(out), OMP_NUM_THREADS="1")
+            log = open(os.path.join(out, f"rank{r}.log"), "w")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", code], env=env, stdout=log,
+                stderr=subprocess.STDOUT, cwd=REPO))
+        try:
+            for p in procs:
+                p.wait(timeout=timeout)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for log in logs:
+                log.close()
+    assert all(p.returncode == 0 for p in procs), ranks_report(procs, out)
     return [dict(np.load(os.path.join(out, f"rank{r}.npz")))
             for r in range(world)]
 
