@@ -87,8 +87,14 @@ package, and:
     launches, beside its bound;
 11. runs the serving path (``repro_torch.serve.protocol_engine``) at the
     main path's key and cut, after timing each per-row-modulus body
-    (``mulmod_rows``, ``modexp_rows`` with both ladders) at n^2 over four
-    moduli beside its plain version on the same inputs: S1, a concurrent
+    (``mulmod_rows``, ``modexp_rows`` with both reductions and both
+    ladders) at n^2 over four moduli beside its plain version on the same
+    inputs, and the Barrett and Montgomery win4 ``modexp_rows`` bodies in
+    turns at S1's three shapes (the fused matvec, a round's encryptions
+    and decryptions), each held against its plain version and Python
+    ints on sample rows, with the sweep of the Montgomery bodies' group
+    and block sizes (resident integers per SM by shared memory and by
+    registers, from ``-Xptxas -v``): S1, a concurrent
     ``ProtocolEngine`` of four gold LASSO tenants (seeds 0-3, 2 rounds),
     each tenant's history, report core (``diff_reports`` clean) and rng
     post-state equal to its solo ``run_on_runtime`` on the card, every
@@ -189,6 +195,7 @@ the LM checks' tolerances are stated in steps 12, 13 and 14.
 """
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import os
@@ -241,6 +248,10 @@ BODY_SOURCES = {
                                   "src/repro/kernels/ops.py:417"),
     "modexp_rows[barrett,binary]": ("modexp.cu",
                                     "src/repro/kernels/ops.py:417"),
+    "modexp_rows[montgomery,win4]": ("modexp.cu",
+                                     "src/repro/kernels/ops.py:417"),
+    "modexp_rows[montgomery,binary]": ("modexp.cu",
+                                       "src/repro/kernels/ops.py:417"),
 }
 MAIN_PATH_BODIES = ("mulmod", "modexp[montgomery,win4]",
                     "modexp_fixed[montgomery]")
@@ -329,16 +340,22 @@ def build_kernels(build):
                          "modexp_fixed_kernel", "mulmod_rows_kernel",
                          "modexp_rows_kernel"}, \
         f"kernel templates in the ptxas report: {sorted(templates)}"
-    # every body of modexp (window x product), of modexp_fixed and of the
-    # per-row modexp (window)
-    for template, bodies in (("modexp_kernel", (
-            ",true,true>", ",false,true>", ",true,false>", ",false,false>")),
-            ("modexp_fixed_kernel", (",true>", ",false>")),
-            ("modexp_rows_kernel", (",true>", ",false>"))):
+    # every body of modexp and of the per-row modexp (window x product)
+    # and of modexp_fixed
+    both = (",true,true>", ",false,true>", ",true,false>", ",false,false>")
+    for template, bodies in (("modexp_kernel", both),
+                             ("modexp_fixed_kernel", (",true>", ",false>")),
+                             ("modexp_rows_kernel", both)):
         for tail in bodies:
             assert any(n.startswith(template + "<") and n.endswith(tail)
                        for n in rows), f"no {template}<...{tail}"
     return rows
+
+
+def check_spills(inst_name, regs):
+    """An instantiation keeps its rows in registers (its ptxas line)."""
+    assert regs.get("spill_stores") == 0 and \
+        regs.get("stack", MAX_STACK) < MAX_STACK, (inst_name, regs)
 
 
 # ---------------------------------------------------------------------------
@@ -980,8 +997,7 @@ def time_new_shapes(key, packs, bi, geometry, mx, ptxas, dev):
         inst_name = (f"modexp_kernel<{g.tpi},{g.words},true,"
                      f"{'true' if mont else 'false'}>")
         regs = ptxas.get(inst_name, {})
-        assert regs.get("spill_stores") == 0 and \
-            regs.get("stack", MAX_STACK) < MAX_STACK, (inst_name, regs)
+        check_spills(inst_name, regs)
         row = dict(body=name, B=B, k=pack.L32, exp_bits=exp_bits, ms=ms,
                    event_ms=event_ms, plain_ms=plain_ms,
                    plain_rows=plain_rows, max_abs_err=err, bound_ms=bnd,
@@ -1589,8 +1605,11 @@ def run_edge_sim(calib):
 
 SERVE_PATHS = ("serve_s1", "serve_s2")
 #: the per-row-modulus bodies S1 launches (the binary ladder runs only
-#: under REPRO_MODEXP_METHOD=binary)
-SERVE_BODIES = ("mulmod_rows", "modexp_rows[barrett,win4]")
+#: under REPRO_MODEXP_METHOD=binary, Barrett under REPRO_REDUCE_IMPL=barrett
+#: or for an even modulus)
+SERVE_BODIES = ("mulmod_rows", "modexp_rows[montgomery,win4]")
+BARRETT_ROWS_BODIES = ("modexp_rows[barrett,win4]",
+                       "modexp_rows[barrett,binary]")
 SERVE_ITERS = 2
 SERVE_SEEDS = (0, 1, 2, 3)
 #: S2's second key width
@@ -1601,13 +1620,34 @@ STAGGER_S = 0.05
 ROWS_TIMED_B, ROWS_MODULI = 4608, 4
 
 
+def rows_body(body):
+    """(reduce_impl, method) of a ``modexp_rows[...]`` body."""
+    impl, method = body[len("modexp_rows["):-1].split(",")
+    return impl, method
+
+
+def cat_moduli(dms):
+    """Per-row DeviceModuli (``RowsModulus.per_row``) stacked row-wise."""
+    return replace(dms[0], **{
+        f.name: torch.cat([getattr(d, f.name) for d in dms])
+        for f in dataclasses.fields(dms[0])
+        if isinstance(getattr(dms[0], f.name), torch.Tensor)})
+
+
+def rows_instantiation(body, g):
+    """The ``modexp_rows_kernel`` instantiation a launch geometry runs."""
+    impl, method = rows_body(body)
+    return (f"modexp_rows_kernel<{g.tpi},{g.words},"
+            f"{str(method == 'win4').lower()},"
+            f"{str(impl == 'montgomery').lower()}>")
+
+
 def time_rows_kernels(bi, ops, lm, mx, geometry, ptxas, dev):
     """Each per-row-modulus body at k = 128 (n^2 of a 2,048-bit key),
     B = ROWS_TIMED_B rows over ROWS_MODULI moduli, 64-bit exponents (the
     matvec's): the kernel timed beside its plain version on the same
     inputs (on the card), the two held against each other and against
-    Python ints on a sample; and the win4 body with 2,048-bit exponents
-    (r^n, c^lam) held against Python ints.  Returns {body: row}."""
+    Python ints on a sample.  Returns {body: row}."""
     rng = random.Random(SEED + 5)
     ms = [rng.getrandbits(4096) | (1 << 4095) | 1 for _ in range(ROWS_MODULI)]
     B = ROWS_TIMED_B
@@ -1623,24 +1663,25 @@ def time_rows_kernels(bi, ops, lm, mx, geometry, ptxas, dev):
     b, bt = rows(B, L16)
     e, et = rows(B, 4)
     out = {}
-    cases = (
+    cases = [
         ("mulmod_rows", "mulmod_rows_kernel",
          lambda: lm.mulmod_rows_cuda(at, bt, rm),
          lambda: lm.mulmod_rows_plain(at, bt, rm),
          [x * y % m for x, y, m in zip(a[:4], b[:4], per_row)],
-         word_products("mulmod", 128), B * 3 * L16 * 4, 0, 20),
-        ("modexp_rows[barrett,win4]", "modexp_rows_kernel",
-         lambda: mx.modexp_rows_cuda(at, et, rm, "win4"),
-         lambda: mx.modexp_rows_plain(at, et, rm, "win4"),
-         [pow(x, y, m) for x, y, m in zip(a[:4], e[:4], per_row)],
-         word_products("modexp", 128, exp_bits=64, mont=False),
-         B * (2 * L16 + 4) * 4, 64, 5),
-        ("modexp_rows[barrett,binary]", "modexp_rows_kernel",
-         lambda: mx.modexp_rows_cuda(at, et, rm, "binary"),
-         lambda: mx.modexp_rows_plain(at, et, rm, "binary"),
-         [pow(x, y, m) for x, y, m in zip(a[:4], e[:4], per_row)],
-         word_products("modexp", 128, exp_bits=64, mont=False, win4=False),
-         B * (2 * L16 + 4) * 4, 64, 5))
+         word_products("mulmod", 128), B * 3 * L16 * 4, 0, 20)]
+    for body in ("modexp_rows[barrett,win4]", "modexp_rows[barrett,binary]",
+                 "modexp_rows[montgomery,win4]",
+                 "modexp_rows[montgomery,binary]"):
+        impl, method = rows_body(body)
+        cases.append((
+            body, "modexp_rows_kernel",
+            functools.partial(mx.modexp_rows_cuda, at, et, rm, method, impl),
+            functools.partial(mx.modexp_rows_plain, at, et, rm, method,
+                              impl),
+            [pow(x, y, m) for x, y, m in zip(a[:4], e[:4], per_row)],
+            word_products("modexp", 128, exp_bits=64,
+                          mont=impl == "montgomery", win4=method == "win4"),
+            B * (2 * L16 + 4) * 4, 64, 5))
     for name, symbol, kernel, plain, want, work, nbytes, exp_bits, reps \
             in cases:
         ms_, event_ms, got = kernel_ms(kernel, reps, symbol)
@@ -1648,12 +1689,10 @@ def time_rows_kernels(bi, ops, lm, mx, geometry, ptxas, dev):
         err = compare(bi, name, got, ref, want)
         bnd, by = bound_ms(work, B, nbytes + B * 4)
         g = geometry.launch_geometry(name, B, 128)
-        tail = "" if name == "mulmod_rows" else \
-            f",{'true' if name.endswith('win4]') else 'false'}"
-        inst_name = f"{symbol}<{g.tpi},{g.words}{tail}>"
+        inst_name = f"{symbol}<{g.tpi},{g.words}>" \
+            if name == "mulmod_rows" else rows_instantiation(name, g)
         regs = ptxas.get(inst_name, {})
-        assert regs.get("spill_stores") == 0 and \
-            regs.get("stack", MAX_STACK) < MAX_STACK, (inst_name, regs)
+        check_spills(inst_name, regs)
         out[name] = dict(shape=f"B={B} k=128 over {ROWS_MODULI} moduli"
                          + (f", {exp_bits}-bit exps" if exp_bits else ""),
                          B=B, k=128, ms=ms_, event_ms=event_ms,
@@ -1664,16 +1703,144 @@ def time_rows_kernels(bi, ops, lm, mx, geometry, ptxas, dev):
             f"{regs.get('spill_stores')} B spills): {ms_:.4f} ms on the "
             f"device, {event_ms:.4f} ms per call (plain {plain_ms:.1f} ms, "
             f"bound {bnd:.4f} ms), equal")
-    # 2,048-bit exponents, the enc and dec ladders' width
-    el, elt = rows(8, 128)
-    long_ms, got = once_ms(lambda: ops.modexp_rows(
-        at[:8], elt, ops.rows_modulus(per_row[:8], 512, dev)))
-    assert bi.to_ints(got) == [pow(x, y, m) for x, y, m
-                               in zip(a[:8], el, per_row[:8])], \
-        "modexp_rows with 2,048-bit exponents differs from Python ints"
-    log(f"  modexp_rows[barrett,win4] B=8 k=128 2048-bit exps: "
-        f"{long_ms:.2f} ms (one call), equal to Python ints")
     return out
+
+
+#: S1's per-row ModExp launches at n^2 over its tenants: (what, rows,
+#: exponent bits): the fused matvec (every tenant's K Nk x Nk blocks),
+#: a round's encryptions (r^n, 2 K Nk a tenant) and decryptions (c^lam,
+#: K Nk a tenant)
+S1_ROWS_SHAPES = (("matvec", len(SERVE_SEEDS) * K * NK * NK, 64),
+                  ("enc", len(SERVE_SEEDS) * 2 * K * NK, 2048),
+                  ("dec", len(SERVE_SEEDS) * K * NK, 2048))
+#: the bodies timed in turns at each S1 shape (Barrett, Montgomery,
+#: Montgomery, Barrett), and the bodies swept over group and block size
+#: (the binary one at the matvec's 64-bit exponents only)
+S1_TURNS = ("modexp_rows[barrett,win4]", "modexp_rows[montgomery,win4]")
+S1_SWEPT = ("modexp_rows[montgomery,win4]", "modexp_rows[montgomery,binary]")
+#: an SM of this card: 64K registers (allocated 256 a warp at a time),
+#: 2,048 threads, 32 blocks, 228 KB of shared memory less 1 KB a block
+SM_REGS, SM_THREADS, SM_BLOCKS, SM_SMEM = 65536, 2048, 32, 228 * 1024
+
+
+def resident_integers(g, registers):
+    """Integers resident on one SM at launch geometry ``g``, limited by
+    shared memory and by registers (each with the thread and block
+    limits)."""
+    other = min(SM_BLOCKS, SM_THREADS // g.threads)
+    by_smem = min(other, SM_SMEM // (g.smem + 1024)) if g.smem else other
+    warp_regs = -(-registers * 32 // 256) * 256
+    by_regs = min(other, SM_REGS // (warp_regs * (g.threads // 32)))
+    return by_smem * g.per_block, by_regs * g.per_block
+
+
+def time_rows_s1(bi, ops, mx, geometry, ptxas, dev):
+    """The per-row ModExp at S1's three shapes (``S1_ROWS_SHAPES``, k =
+    128 over the four tenants' moduli, each tenant's rows together): the
+    Barrett and Montgomery win4 bodies timed in turns (CUDA events), each
+    held against its plain version (on the card) and Python ints on the
+    first and last SAMPLE_ROWS rows; then every group size and block size
+    of the Montgomery bodies (``geometry.SWEEP_THREADS``), each output
+    equal to the chosen geometry's, with its resident integers per SM by
+    shared memory and by registers.  Returns (turn rows, sweep rows)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 7)
+    rng = random.Random(SEED + 7)
+    T = len(SERVE_SEEDS)
+    ms = [rng.getrandbits(4096) | (1 << 4095) | 1 for _ in range(T)]
+    turns, sweep = [], []
+    for what, B, exp_bits in S1_ROWS_SHAPES:
+        per_row = [ms[i * T // B] for i in range(B)]
+        rm = ops.rows_modulus(per_row, 512, dev)
+        L16, le16 = rm.table.L16, exp_bits // 16
+        base = torch.randint(0, 1 << 16, (B, L16), generator=gen,
+                             device=dev, dtype=torch.int32)
+        exp = torch.randint(0, 1 << 16, (B, le16), generator=gen,
+                            device=dev, dtype=torch.int32)
+        sel = _sample(B)
+        sel_t = torch.as_tensor(sel, device=dev)
+        want = [pow(x, y, per_row[i]) for i, x, y in zip(
+            sel, bi.to_ints(base[sel_t].cpu()), bi.to_ints(exp[sel_t].cpu()))]
+        sample_dm = replace(rm, midx=rm.midx[sel_t]).per_row()
+        reps = 1 if B > 100_000 else 2
+        moved = B * (2 * L16 + le16) * 4 + B * 4
+        shape = dict(what=what, B=B, k=128, exp_bits=exp_bits, moduli=T)
+
+        def launch(body, **geom):
+            impl, method = rows_body(body)
+            return functools.partial(mx.modexp_rows_cuda, base, exp, rm,
+                                     method, impl, **geom)
+
+        times, results = defaultdict(list), {}
+        for body in S1_TURNS + S1_TURNS[::-1]:
+            t, results[body] = time_ms(launch(body), reps)
+            times[body].append(t)
+        for body in S1_TURNS:
+            impl, method = rows_body(body)
+            plain_ms, plain = once_ms(functools.partial(
+                mx.modexp_plain, base[sel_t], exp[sel_t], sample_dm, method,
+                impl))
+            err = compare(bi, f"{body} {what}", results[body][sel_t], plain,
+                          want)
+            bnd, by = bound_ms(word_products(
+                "modexp", 128, exp_bits, mont=impl == "montgomery",
+                win4=method == "win4"), B, moved)
+            g = geometry.launch_geometry(body, B, 128)
+            inst = rows_instantiation(body, g)
+            regs = ptxas.get(inst, {})
+            check_spills(inst, regs)
+            row = dict(body=body, **shape, ms=float(np.mean(times[body])),
+                       turns_ms=times[body], bound_ms=bnd, bound_by=by,
+                       plain_ms=plain_ms, plain_rows=len(sel),
+                       max_abs_err=err, instantiation=inst, **regs)
+            turns.append(row)
+            log(f"  {body} {what} B={B} k=128 {exp_bits}-bit exps ({inst}: "
+                f"{regs.get('registers')} registers, {regs.get('spill_stores')}"
+                f" B spills): {row['ms']:.2f} ms (turns " + ", ".join(
+                    f"{t:.2f}" for t in times[body]) + f"), bound "
+                f"{bnd:.2f} ms, plain {plain_ms:.1f} ms on {len(sel)} rows; "
+                f"equal to the plain version and Python ints")
+        chosen = results["modexp_rows[montgomery,win4]"]
+        for body in S1_SWEPT:
+            if body.endswith("binary]") and what != "matvec":
+                continue
+            impl, method = rows_body(body)
+            bnd = bound_ms(word_products(
+                "modexp", 128, exp_bits, mont=True, win4=method == "win4"),
+                B, moved)[0]
+            best = None
+            for tpi in sorted({t for t, _ in geometry.SHAPES[body]}):
+                for threads in geometry.SWEEP_THREADS:
+                    g = geometry.launch_geometry(body, B, 128, tpi, threads)
+                    t, got = time_ms(launch(body, tpi=tpi, threads=threads),
+                                     reps)
+                    assert torch.equal(got, chosen), (body, what, tpi,
+                                                      threads)
+                    del got
+                    inst = rows_instantiation(body, g)
+                    regs = ptxas.get(inst, {})
+                    check_spills(inst, regs)
+                    smem_int, regs_int = resident_integers(
+                        g, regs.get("registers", 0))
+                    row = dict(body=body, **shape, tpi=tpi, threads=threads,
+                               ms=t, bound_ms=bnd, smem_bytes=g.smem,
+                               resident_by_smem=smem_int,
+                               resident_by_regs=regs_int,
+                               registers=regs.get("registers"),
+                               default=(g == geometry.launch_geometry(
+                                   body, B, 128)))
+                    sweep.append(row)
+                    best = row if best is None or t < best["ms"] else best
+                    log(f"  sweep {body} {what} B={B}: TPI {tpi} x {threads}"
+                        f" threads: {t:.2f} ms (bound {bnd:.2f}); "
+                        f"{regs.get('registers')} registers, {g.smem} B "
+                        f"shared a block; resident integers per SM by shared"
+                        f" memory {smem_int}, by registers {regs_int}; equal")
+            log(f"  sweep {body} {what}: fastest TPI {best['tpi']} x "
+                f"{best['threads']} threads, {best['ms']:.2f} ms")
+        del results, chosen, base, exp
+        torch.cuda.empty_cache()
+    return turns, sweep
 
 
 def tree_levels(n):
@@ -1758,11 +1925,10 @@ class LaunchRecorder:
 
     def _sample_rows(self, key, rm, **tensors):
         sel = torch.as_tensor(_sample(key[1]), device=rm.midx.device)
-        t = rm.midx[sel].long()
         self.samples[key] = dict(
             {name: x[sel].clone() for name, x in tensors.items()},
-            m16=rm.table.m16[t], mu16=rm.table.mu16[t],
-            moduli=len(rm.moduli), table=rm.table)
+            dm=replace(rm, midx=rm.midx[sel]).per_row(),
+            moduli=len(rm.moduli))
 
     def __enter__(self):
         mx, lm, geometry = self.mx, self.lm, self.geometry
@@ -1800,11 +1966,12 @@ class LaunchRecorder:
                 self._sample_rows(key, rm, a=a, b=b, out=out)
             return out
 
-        def modexp_rows_cuda(base, exp, rm, method, tpi=None):
-            body = geometry.body_name("modexp_rows", "barrett", method)
+        def modexp_rows_cuda(base, exp, rm, method, reduce_impl, tpi=None,
+                             threads=None):
+            body = geometry.body_name("modexp_rows", reduce_impl, method)
             shape = (body, int(base.shape[0]), rm.table.L32)
             out = self._timed(shape, lambda: real[(mx, "modexp_rows_cuda")](
-                base, exp, rm, method, tpi))
+                base, exp, rm, method, reduce_impl, tpi, threads))
             key = shape + (int(exp.shape[1]),)
             if key not in self.samples and shape[1]:
                 self._sample_rows(key, rm, base=base, exp=exp, out=out)
@@ -1850,18 +2017,16 @@ class LaunchRecorder:
         want, secs = {}, []
         for (body, k, le16), keys in groups.items():
             s = [self.samples[k] for k in keys]
-            dm = dataclasses.replace(
-                s[0]["table"], m16=torch.cat([x["m16"] for x in s]),
-                mu16=torch.cat([x["mu16"] for x in s]))
+            dm = cat_moduli([x["dm"] for x in s])
             t0 = time.perf_counter()
             if body == "mulmod_rows":
                 out = lm.mulmod_plain(torch.cat([x["a"] for x in s]),
                                       torch.cat([x["b"] for x in s]), dm)
             else:
+                impl, method = rows_body(body)
                 out = mx.modexp_plain(torch.cat([x["base"] for x in s]),
                                       torch.cat([x["exp"] for x in s]), dm,
-                                      body.split(",")[1].rstrip("]"),
-                                      "barrett")
+                                      method, impl)
             torch.cuda.synchronize()
             secs.append((body, k, 16 * le16, time.perf_counter() - t0))
             i = 0
@@ -1883,9 +2048,10 @@ class LaunchRecorder:
             if body == "mulmod_rows":
                 work, moved = word_products("mulmod", k), B * 3 * L16 * 4
             else:
+                impl, method = rows_body(body)
                 work = word_products("modexp", k, exp_bits=16 * le16,
-                                     mont=False,
-                                     win4=body.endswith("win4]"))
+                                     mont=impl == "montgomery",
+                                     win4=method == "win4")
                 moved = B * (2 * L16 + le16) * 4
             n, ms = timed[(body, B, k)]
             bnd, by = bound_ms(work, B, moved + B * 4)
@@ -1969,7 +2135,8 @@ def run_serve_s1(runner, protocol, QuantSpec, make_lasso, report_core,
     assert serve["fused_launches"] > 0, serve
     assert serve["launches"] < solo_launches, (serve["launches"],
                                                solo_launches)
-    check_launches("serving path (S1)", launches, SERVE_BODIES)
+    check_launches("serving path (S1)", launches, SERVE_BODIES,
+                   absent=BARRETT_ROWS_BODIES)
     rounds = {tid: res.stats["runtime"]["iter_times"]
               for tid, res in results.items()}
     # every tenant's phase clock laps at its own round ends, device
@@ -2050,7 +2217,8 @@ def run_serve_s2(runner, protocol, QuantSpec, make_lasso, report_core,
     assert per["d"]["cancelled"] and per["d"]["rounds"] == 1, per["d"]
     assert per["b"]["started_at"] >= STAGGER_S, per["b"]
     assert serve["fused_launches"] > 0, serve
-    check_launches("serving path (S2)", launches, SERVE_BODIES)
+    check_launches("serving path (S2)", launches, SERVE_BODIES,
+                   absent=BARRETT_ROWS_BODIES)
     widths = sorted({e["limb_bytes"] for e in eng.collector.fused_log})
     log(f"  S2: wall {wall:.2f} s, virtual {serve['virtual_time']:.4f} s, "
         f"kernel device ms {device:.1f}; serve " + json.dumps(
@@ -3285,6 +3453,12 @@ def main():
     # the serving path, after every earlier phase
     log("per-row-modulus kernels vs plain versions at n^2, timed:")
     times.update(time_rows_kernels(bi, ops, lm, mx, geometry, ptxas, dev))
+    log("per-row ModExp at S1's shapes, Barrett and Montgomery in turns, "
+        "and the Montgomery bodies' group and block sizes:")
+    t0 = time.perf_counter()
+    rows_turns, rows_sweep = time_rows_s1(bi, ops, mx, geometry, ptxas, dev)
+    log(f"rows at S1's shapes: {time.perf_counter() - t0:.1f} s; sweep "
+        + json.dumps(rows_sweep))
     prod_tree = time_prod_rows(bi, ops, dev)
     serving, serve_launches = {}, {}
     with LaunchRecorder(mx, lm, geometry) as launch_rec:
@@ -3385,6 +3559,11 @@ def main():
                 dict(r, **{f"{path}_launches": rt_shape_launches[path].get(
                     (body, r["B"], r["k"]), 0) for path in RUNTIME_PATHS})
                 for r in rt_new)
+        rows_s1 = [r for r in rows_turns if r["body"] == body]
+        if rows_s1:                            # S1's shapes, in turns
+            entry.setdefault("shapes", []).extend(
+                dict(r, serve_s1_launches=s1_shapes.get(
+                    (body, r["B"], r["k"]), 0)) for r in rows_s1)
         rows_new = [r for r in serve_shapes if r["body"] == body]
         if rows_new:                           # the serving path's shapes
             entry.setdefault("shapes", []).extend(

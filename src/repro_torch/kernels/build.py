@@ -56,7 +56,8 @@ KERNELS = {
                (_P, _P, _P, _I, _I, _I, _P, _P, _P, _U, _I, _I, _I, *_GEOM,
                 _P)),
     "modexp_rows": ("modexp", "modexp_rows_launch",
-                    (_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I, *_GEOM, _P)),
+                    (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                     *_GEOM, _P)),
     "modexp_fixed": ("modexp_fixed", "modexp_fixed_launch",
                      (_P, _P, _I, _I, _I, _I, *_HALF, *_HALF, _I, _I, *_GEOM,
                       _P)),
@@ -192,11 +193,15 @@ def require_index(name: str, rm, rows: int, device) -> "torch.Tensor":
                          f"{tuple(midx.shape)} on {midx.device}")
     T = len(rm.moduli)
     W = 2 * dm.L32
-    if tuple(dm.mw.shape) != (T, W) or tuple(dm.muw.shape) != (T, W + 2) \
-            or dm.mw.device != device or dm.muw.device != device:
-        raise ValueError(f"{name}: modulus table of {T} rows does not match "
-                         f"its kernel tensors {tuple(dm.mw.shape)}, "
-                         f"{tuple(dm.muw.shape)} on {dm.mw.device}")
+    want = {"mw": (T, W), "muw": (T, W + 2)}
+    if dm.mp is not None:             # Montgomery material
+        want.update(mp=(T,), r1=(T, W), r2=(T, W))
+    for field, shape in want.items():
+        x = getattr(dm, field)
+        if tuple(x.shape) != shape or x.device != device:
+            raise ValueError(f"{name}: modulus table of {T} rows does not "
+                             f"match its kernel tensor {field} "
+                             f"{tuple(x.shape)} on {x.device}")
     if rows and not 0 <= int(midx.min()) <= int(midx.max()) < T:
         raise ValueError(f"{name}: row index outside the table's {T} rows")
     return midx

@@ -39,7 +39,8 @@ class DeviceModulus:
     * ``mw`` (W,) = m, ``muw`` (W+2,) = floor(2^{64 L32} / m): Barrett
       inside the kernels;
     * ``minv`` (W,) = -m^{-1} mod R, ``r1`` = R mod m, ``r2`` = R^2 mod m
-      (W,) with R = 2^{32 L32}, and ``mp`` = -m^{-1} mod 2^32: Montgomery,
+      (W,) with R = 2^{32 L32}, and ``mp`` = -m^{-1} mod 2^32 (an int; a
+      :class:`RowsModulus` table holds one int32 per modulus): Montgomery,
       ``None`` for even moduli.
     """
     L16: int
@@ -48,7 +49,7 @@ class DeviceModulus:
     mu16: torch.Tensor
     mw: torch.Tensor
     muw: torch.Tensor
-    mp: int | None
+    mp: int | torch.Tensor | None
     minv: torch.Tensor | None
     r1: torch.Tensor | None
     r2: torch.Tensor | None
@@ -150,11 +151,13 @@ class RowsModulus:
     one device, and each row's index into it (the serving path's
     cross-tenant launches, one tenant key per row).
 
-    ``table`` holds the Barrett material of :class:`DeviceModulus` with a
-    leading T axis: ``m16`` (T, L16), ``mu16`` (T, L16+1) for the plain
-    versions, ``mw`` (T, W), ``muw`` (T, W+2) for the kernels; it has no
-    Montgomery material.  ``midx`` is (B,) int32, every entry in [0, T);
-    ``moduli`` are the T moduli as ints.
+    ``table`` holds the material of :class:`DeviceModulus` with a leading
+    T axis: Barrett's ``m16`` (T, L16), ``mu16`` (T, L16+1) for the plain
+    versions, ``mw`` (T, W), ``muw`` (T, W+2) for the kernels, and
+    Montgomery's ``mp`` (T,) int32 (-m^{-1} mod 2^32, as a two's
+    complement), ``minv``, ``r1``, ``r2`` (T, W), all four ``None`` when
+    any table modulus is even.  ``midx`` is (B,) int32, every entry in
+    [0, T); ``moduli`` are the T moduli as ints.
     """
     table: DeviceModulus
     midx: torch.Tensor
@@ -163,6 +166,11 @@ class RowsModulus:
     @property
     def B(self) -> int:
         return int(self.midx.shape[0])
+
+    @property
+    def montgomery(self) -> bool:
+        """Whether the table has Montgomery material (every modulus odd)."""
+        return self.table.mp is not None
 
     def repeat(self, repeats) -> "RowsModulus":
         """Each row ``repeats`` times in a row (an int, or one count per
@@ -174,9 +182,11 @@ class RowsModulus:
             self.midx, repeats), self.moduli)
 
     def per_row(self) -> DeviceModulus:
-        """Row i's modulus in row i of ``m16`` and ``mu16`` (B rows): the
-        plain versions' Barrett broadcasts over them.  ``mw``/``muw`` stay
-        the table's."""
-        t = self.table
+        """Row i's modulus in row i of every table tensor (B rows): the
+        plain versions' Barrett and REDC broadcast over them."""
         idx = self.midx.long()
-        return dataclasses.replace(t, m16=t.m16[idx], mu16=t.mu16[idx])
+        t = self.table
+        return dataclasses.replace(t, **{
+            f.name: getattr(t, f.name)[idx]
+            for f in dataclasses.fields(t)
+            if isinstance(getattr(t, f.name), torch.Tensor)})

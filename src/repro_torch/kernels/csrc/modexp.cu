@@ -104,32 +104,52 @@ __global__ void modexp_kernel(const int32_t* __restrict__ base,
                                       m16, aux16, r2_16, mp, k, tab);
 }
 
-// Per-row moduli, Barrett only (the serving path's launches, one tenant
-// key per row): element e reduces mod row midx[e] of a table of T moduli
-// (m16: T rows of 2k limbs, mu16: T rows of 2(k+1) limbs).  Replaces the
-// reference's kernels/ops.py::modexp_rows (jitted common.modexp2d_win4
+// Per-row moduli (the serving path's launches, one tenant key per row):
+// element e reduces mod row t = midx[e] of a table of T moduli.  Replaces
+// the reference's kernels/ops.py::modexp_rows (jitted common.modexp2d_win4
 // and modexp2d with per-row m and mu operands; not a Pallas kernel).
-// Barrett because the moduli are n^2 of the tenants' keys: a Montgomery
-// body would need each row's -m^{-1} and R^2 mod m as well, and the rows'
-// exponents (r^n's n, c^lam's lam, a matvec's plaintexts) are not reduced
-// into CRT halves.  The ladders are modexp_kernel's, constant-time alike;
-// a table row read by every element of its tenant stays in L2.
-template <int TPI, int NW, bool WIN4>
+//   Montgomery (default, every table modulus odd): m16, aux16 (R mod m)
+//   and r2_16 (R^2 mod m) are T rows of 2k limbs, mp (T int32) holds each
+//   row's -m^{-1} mod 2^32, loaded per element;
+//   Barrett (REPRO_REDUCE_IMPL=barrett, or a table with an even modulus):
+//   m16 T rows of 2k limbs, aux16 (mu) T rows of 2(k+1) limbs.
+// Bound: modexp_kernel's, per element; the serving path's moduli are the
+// tenants' n^2 (k = 128), where a 64-bit-exponent win4 element needs
+// about 6.3M IMADs (Montgomery; 5.2M with the squaring saving, which no
+// body takes) against about 1 KB of traffic: compute-bound by a factor of
+// about 1,000.
+// Design: the ladders are modexp_kernel's, constant-time alike (the
+// table row an element reads depends on its tenant, never on exponent
+// bits); a table row read by every element of its tenant stays in L2.
+// At n^2 the 16-entry win4 table takes 8 KB of shared memory per
+// integer whatever the group size, so at most 24-26 integers are
+// resident per SM.  The Montgomery bodies' group size (geometry.TPI: 16
+// threads, 8 words a lane, 71 registers) is the fastest of TPI 8, 16 and
+// 32 in chip_smoke.py's sweep at S1's three shapes, where shared memory
+// still caps its residency at 24 integers (registers would allow 56).
+template <int TPI, int NW, bool WIN4, bool MONT>
 __global__ void modexp_rows_kernel(const int32_t* __restrict__ base,
                                    const int32_t* __restrict__ exp,
                                    int32_t* __restrict__ out, int B,
                                    int l16, int le16,
                                    const int32_t* __restrict__ m16,
-                                   const int32_t* __restrict__ mu16,
+                                   const int32_t* __restrict__ aux16,
+                                   const int32_t* __restrict__ r2_16,
+                                   const int32_t* __restrict__ mp,
                                    const int32_t* __restrict__ midx, int k) {
   extern __shared__ u32 tab[];  // WIN4: 16 entries x NW words x blockDim
   const int e = (int)((blockIdx.x * blockDim.x + threadIdx.x) / TPI);
   const bool live = e < B;
   const size_t t = (size_t)midx[live ? e : 0];
   const int32_t* m_row = m16 + t * 2 * k;
-  modexp_element<TPI, NW, WIN4, false>(base, exp, out, e, live, l16, le16,
-                                       m_row, mu16 + t * 2 * (k + 1), m_row,
-                                       0u, k, tab);
+  if constexpr (MONT)
+    modexp_element<TPI, NW, WIN4, true>(
+        base, exp, out, e, live, l16, le16, m_row, aux16 + t * 2 * k,
+        r2_16 + t * 2 * k, (u32)mp[t], k, tab);
+  else
+    modexp_element<TPI, NW, WIN4, false>(
+        base, exp, out, e, live, l16, le16, m_row, aux16 + t * 2 * (k + 1),
+        m_row, 0u, k, tab);
 }
 
 // (threads per element, words per thread) of every instantiation: each
@@ -141,11 +161,13 @@ __global__ void modexp_rows_kernel(const int32_t* __restrict__ base,
   X(8, 1) X(8, 2) X(8, 4) X(8, 8) X(8, 16) X(4, 16) X(16, 4)
 #define MODEXP_BARRETT_WIN4_SHAPES(X) \
   X(16, 1) X(16, 2) X(16, 4) X(16, 8) X(8, 8) X(4, 16)
-// the per-row bodies: their group size at every width (win4 16 threads,
-// binary 8, as the broadcast Barrett bodies)
+// the per-row bodies: their group size at every width, and for the
+// Montgomery bodies the other group sizes timed against it at k = 128
 #define MODEXP_ROWS_WIN4_SHAPES(X) X(16, 1) X(16, 2) X(16, 4) X(16, 8)
 #define MODEXP_ROWS_BINARY_SHAPES(X) \
   X(8, 1) X(8, 2) X(8, 4) X(8, 8) X(8, 16)
+#define MODEXP_ROWS_MONT_SHAPES(X) \
+  X(16, 1) X(16, 2) X(16, 4) X(16, 8) X(8, 16) X(32, 4)
 
 // The widths and launch geometry both launchers take.
 static bool valid_launch(int B, int l16, int le16, int k, int tpi, int nw,
@@ -207,46 +229,59 @@ extern "C" int modexp_launch(const int32_t* base, const int32_t* exp,
   return (int)cudaErrorInvalidValue;
 }
 
-template <int TPI, int NW, bool WIN4>
+template <int TPI, int NW, bool WIN4, bool MONT>
 static int launch_rows(const int32_t* base, const int32_t* exp, int32_t* out,
                        int B, int l16, int le16, const int32_t* m16,
-                       const int32_t* mu16, const int32_t* midx, int k,
+                       const int32_t* aux16, const int32_t* r2_16,
+                       const int32_t* mp, const int32_t* midx, int k,
                        int threads, int blocks, int smem, cudaStream_t s) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        modexp_rows_kernel<TPI, NW, WIN4>,
+        modexp_rows_kernel<TPI, NW, WIN4, MONT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
-  modexp_rows_kernel<TPI, NW, WIN4><<<blocks, threads, smem, s>>>(
-      base, exp, out, B, l16, le16, m16, mu16, midx, k);
+  modexp_rows_kernel<TPI, NW, WIN4, MONT><<<blocks, threads, smem, s>>>(
+      base, exp, out, B, l16, le16, m16, aux16, r2_16, mp, midx, k);
   return (int)cudaGetLastError();
 }
 
-// modexp_launch's Barrett bodies with per-row moduli: m16 (T rows of 2k
-// limbs) and mu16 (T rows of 2(k+1) limbs) are tables, midx (B int32,
-// each in [0, T)) names each row's modulus.  The caller checks midx.
+// modexp_launch with per-row moduli: m16, aux16 and r2_16 are tables of T
+// rows (aux16: R mod m of 2k limbs, Montgomery, or mu of 2(k+1) limbs,
+// Barrett; r2_16 and mp, T int32 of -m^{-1} mod 2^32, are read by
+// Montgomery only), midx (B int32, each in [0, T)) names each row's
+// modulus.  The caller checks midx.
 extern "C" int modexp_rows_launch(const int32_t* base, const int32_t* exp,
                                   int32_t* out, int B, int l16, int le16,
-                                  const int32_t* m16, const int32_t* mu16,
-                                  const int32_t* midx, int k, int win4,
-                                  int tpi, int nw, int threads, int blocks,
-                                  int smem, void* stream) {
+                                  const int32_t* m16, const int32_t* aux16,
+                                  const int32_t* r2_16, const int32_t* mp,
+                                  const int32_t* midx, int k, int mont,
+                                  int win4, int tpi, int nw, int threads,
+                                  int blocks, int smem, void* stream) {
   if (!valid_launch(B, l16, le16, k, tpi, nw, threads, blocks))
     return (int)cudaErrorInvalidValue;
   if (B <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-#define ROWS(T, N, W)                                                     \
+#define ROWS(T, N, W, M)                                                  \
   if (tpi == T && nw == N)                                               \
-    return launch_rows<T, N, W>(base, exp, out, B, l16, le16, m16, mu16, \
-                                midx, k, threads, blocks, smem, s);
-#define ROWS_WIN4(T, N) ROWS(T, N, true)
-#define ROWS_BINARY(T, N) ROWS(T, N, false)
-  if (win4) {
+    return launch_rows<T, N, W, M>(base, exp, out, B, l16, le16, m16,    \
+                                   aux16, r2_16, mp, midx, k, threads,   \
+                                   blocks, smem, s);
+#define ROWS_WIN4(T, N) ROWS(T, N, true, false)
+#define ROWS_BINARY(T, N) ROWS(T, N, false, false)
+#define ROWS_MONT_WIN4(T, N) ROWS(T, N, true, true)
+#define ROWS_MONT_BINARY(T, N) ROWS(T, N, false, true)
+  if (mont && win4) {
+    MODEXP_ROWS_MONT_SHAPES(ROWS_MONT_WIN4)
+  } else if (mont) {
+    MODEXP_ROWS_MONT_SHAPES(ROWS_MONT_BINARY)
+  } else if (win4) {
     MODEXP_ROWS_WIN4_SHAPES(ROWS_WIN4)
   } else {
     MODEXP_ROWS_BINARY_SHAPES(ROWS_BINARY)
   }
+#undef ROWS_MONT_BINARY
+#undef ROWS_MONT_WIN4
 #undef ROWS_BINARY
 #undef ROWS_WIN4
 #undef ROWS

@@ -13,9 +13,10 @@ sources).  ``modexp_fixed`` runs one warp per block, so its small batches
 spread over the SMs; ``modexp`` and ``mulmod`` run 64-thread blocks.  The
 per-row-modulus bodies (``mulmod_rows``, ``modexp_rows[...]``: one modulus
 per row, the serving path's cross-tenant launches) take the geometry of
-their broadcast counterparts.  The
-win4 and fixed ladders keep a 16-entry power table per integer in dynamic
-shared memory.
+their broadcast counterparts, but the Montgomery ``modexp_rows`` bodies,
+whose group size comes from a sweep at the serving path's n^2.
+The win4 and fixed ladders keep a 16-entry power table per integer in
+dynamic shared memory.
 
 Nothing here touches a device: the CPU tests check every width.
 """
@@ -35,7 +36,8 @@ BODIES = ("mulmod",
           "modexp[barrett,win4]", "modexp[barrett,binary]",
           "modexp_fixed[montgomery]", "modexp_fixed[barrett]",
           "mulmod_rows", "modexp_rows[barrett,win4]",
-          "modexp_rows[barrett,binary]")
+          "modexp_rows[barrett,binary]", "modexp_rows[montgomery,win4]",
+          "modexp_rows[montgomery,binary]")
 
 #: threads per integer of each body, at every width (mulmod: below
 #: MULMOD_FULL_BATCH).  modexp's bodies run 8 but modexp[barrett,win4]
@@ -45,12 +47,26 @@ BODIES = ("mulmod",
 #: [barrett,binary] 30.83 / 24.28 / 25.68, [montgomery,win4] 12.96 /
 #: 8.62 / 9.83, [montgomery,binary] 12.52 / 10.43 / 12.93.  The win4
 #: table's shared memory limits TPI 8's Barrett blocks per SM.
+#: The per-row Montgomery bodies run 16: the same card's sweep at S1's
+#: n^2 (k = 128, four moduli), CUDA-event ms for TPI 8 / 16 / 32 in
+#: 64-thread blocks (128-thread blocks: within 1 % at TPI 16 and 32; at
+#: TPI 8 5 % faster on the matvec, 18-46 % slower at 2,048 bits):
+#: [montgomery,win4] matvec B = 442,368, 64-bit exponents 637.58 /
+#: 389.67 / 451.96, enc B = 4,608, 2,048-bit 192.77 / 132.45 / 140.21,
+#: dec B = 2,304, 2,048-bit 104.66 / 80.85 / 82.82; [montgomery,binary]
+#: matvec 592.05 / 484.14 / 614.15.  Resident integers per SM at TPI
+#: 8 / 16 / 32 (win4, by shared memory / by registers: 123, 71 and 47
+#: registers): 24 / 64, 24 / 56, 26 / 42: the 8 KB table of an integer
+#: at n^2 still caps residency at TPI 16; TPI 32 spends twice the
+#: shuffles per word product, TPI 8 runs 6 warps an SM.
 TPI = {"mulmod": 32,
        "modexp[montgomery,win4]": 8, "modexp[montgomery,binary]": 8,
        "modexp[barrett,win4]": 16, "modexp[barrett,binary]": 8,
        "modexp_fixed[montgomery]": 32, "modexp_fixed[barrett]": 32,
        "mulmod_rows": 32, "modexp_rows[barrett,win4]": 16,
-       "modexp_rows[barrett,binary]": 8}
+       "modexp_rows[barrett,binary]": 8,
+       "modexp_rows[montgomery,win4]": 16,
+       "modexp_rows[montgomery,binary]": 16}
 #: From this batch on, mulmod runs MULMOD_FULL_WORDS words per lane (8 or
 #: 16 threads per integer at the main path's widths).  chip_smoke.py's
 #: sweep on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6), device
@@ -65,10 +81,11 @@ MULMOD_FULL_WORDS = 8
 #: (threads per integer, words per thread) of every instantiation of each
 #: body: TPI's group size at every width up to 128 words, and the other
 #: group sizes timed against it at k = 64 (mulmod and mulmod_rows: every
-#: group size at every width; the per-row modexp bodies: their group size
-#: only)
+#: group size at every width; the per-row Barrett modexp bodies: their
+#: group size only; the per-row Montgomery bodies: the others at k = 128)
 _MODEXP = ((8, 1), (8, 2), (8, 4), (8, 8), (8, 16), (4, 16), (16, 4))
 _MODEXP_FIXED = ((32, 1), (32, 2), (32, 4), (16, 4), (8, 8))
+_MODEXP_ROWS_MONT = ((16, 1), (16, 2), (16, 4), (16, 8), (8, 16), (32, 4))
 _MULMOD = ((32, 1), (32, 2), (32, 4), (16, 1), (16, 2), (16, 4), (16, 8),
            (8, 1), (8, 2), (8, 4), (8, 8), (8, 16))
 SHAPES = {
@@ -83,10 +100,14 @@ SHAPES = {
     "mulmod_rows": _MULMOD,
     "modexp_rows[barrett,win4]": ((16, 1), (16, 2), (16, 4), (16, 8)),
     "modexp_rows[barrett,binary]": ((8, 1), (8, 2), (8, 4), (8, 8), (8, 16)),
+    "modexp_rows[montgomery,win4]": _MODEXP_ROWS_MONT,
+    "modexp_rows[montgomery,binary]": _MODEXP_ROWS_MONT,
 }
 #: threads per block of each kernel
 BLOCK_THREADS = {"modexp": 64, "modexp_fixed": 32, "mulmod": 64,
                  "modexp_rows": 64, "mulmod_rows": 64}
+#: the block sizes a sweep times (``launch_geometry(threads=...)``)
+SWEEP_THREADS = (64, 128)
 TABLE_ENTRIES = 16
 
 
@@ -106,8 +127,9 @@ class Geometry:
 def body_name(kernel: str, reduce_impl: str = "montgomery",
               method: str = "win4") -> str:
     """The body a launch of ``kernel`` runs: ``mulmod``, ``mulmod_rows``,
-    ``modexp[<reduce_impl>,<method>]``, ``modexp_rows[barrett,<method>]``
-    or ``modexp_fixed[<reduce_impl>]``."""
+    ``modexp[<reduce_impl>,<method>]``,
+    ``modexp_rows[<reduce_impl>,<method>]`` or
+    ``modexp_fixed[<reduce_impl>]``."""
     if kernel in ("mulmod", "mulmod_rows"):
         return kernel
     if kernel in ("modexp", "modexp_rows"):
@@ -130,11 +152,12 @@ def group_size(body: str, B: int, k: int) -> int:
     return TPI[body]
 
 
-def launch_geometry(body: str, B: int, k: int,
-                    tpi: int | None = None) -> Geometry:
+def launch_geometry(body: str, B: int, k: int, tpi: int | None = None,
+                    threads: int | None = None) -> Geometry:
     """Geometry of one launch of ``body`` (one of :data:`BODIES`) over B
     integers of k words.  ``tpi`` picks another instantiated group size
-    than :func:`group_size`'s, to time the candidates.  Raises
+    than :func:`group_size`'s, ``threads`` another block size than
+    :data:`BLOCK_THREADS`', to time the candidates.  Raises
     ``ValueError`` for a width outside 1..MAX_WORDS, a negative batch, an
     instantiation that does not exist, or a block that would exceed 1,024
     threads or 227 KB of shared memory."""
@@ -154,9 +177,13 @@ def launch_geometry(body: str, B: int, k: int,
             f"{body} has no instantiation for {tpi} threads per integer "
             f"at {k} words ({words} per thread); instantiated: "
             f"{SHAPES[body]}")
-    threads = BLOCK_THREADS[kernel]
+    if threads is None:
+        threads = BLOCK_THREADS[kernel]
     table = kernel == "modexp_fixed" or body.endswith(",win4]")
     smem = TABLE_ENTRIES * words * threads * 4 if table else 0
+    if threads % 32:
+        raise ValueError(f"{body}: {threads} threads per block is not a "
+                         f"whole number of warps")
     if threads > MAX_THREADS:
         raise ValueError(f"{body} at {k} words: {threads} threads per block "
                          f"exceed {MAX_THREADS}")

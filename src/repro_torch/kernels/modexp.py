@@ -14,10 +14,11 @@ Port of ``repro.kernels.modexp``:
 
 ``modexp_rows`` (the reference's jitted ``ops.modexp_rows``, not a Pallas
 kernel) takes one modulus per row from a table
-(:class:`common.RowsModulus`), Barrett only: :func:`modexp_rows_cuda`
-launches the ``modexp_rows_kernel`` bodies of ``csrc/modexp.cu``,
-:func:`modexp_rows_plain` runs the Barrett ladders over the gathered
-per-row moduli.
+(:class:`common.RowsModulus`), Montgomery (each row's -m^{-1}, R and R^2
+from the table) or Barrett, either ladder: :func:`modexp_rows_cuda`
+launches the four ``modexp_rows_kernel`` bodies of ``csrc/modexp.cu``,
+:func:`modexp_rows_plain` runs the same ladders over the gathered per-row
+moduli.
 
 Every body runs a group of threads per big integer;
 ``geometry.launch_geometry`` sizes every launch.  Each
@@ -91,36 +92,51 @@ def modexp_cuda(base: torch.Tensor, exp: torch.Tensor, dm: cm.DeviceModulus,
     return out
 
 
+def _require_odd(rm: cm.RowsModulus, reduce_impl: str) -> None:
+    if reduce_impl == "montgomery" and not rm.montgomery:
+        raise ValueError("modexp_rows: Montgomery needs every table "
+                         "modulus odd")
+
+
 def modexp_rows_plain(base: torch.Tensor, exp: torch.Tensor,
-                      rm: cm.RowsModulus, method: str) -> torch.Tensor:
+                      rm: cm.RowsModulus, method: str,
+                      reduce_impl: str) -> torch.Tensor:
     """base (B, L16), exp (B, Le16) -> base^exp mod row i's modulus,
-    (B, L16), Barrett, plain PyTorch."""
-    return modexp_plain(base, exp, rm.per_row(), method, "barrett")
+    (B, L16), plain PyTorch."""
+    _require_odd(rm, reduce_impl)
+    return modexp_plain(base, exp, rm.per_row(), method, reduce_impl)
 
 
 def modexp_rows_cuda(base: torch.Tensor, exp: torch.Tensor,
-                     rm: cm.RowsModulus, method: str,
-                     tpi: int | None = None) -> torch.Tensor:
+                     rm: cm.RowsModulus, method: str, reduce_impl: str,
+                     tpi: int | None = None,
+                     threads: int | None = None) -> torch.Tensor:
     """The ``modexp_rows_kernel`` of ``csrc/modexp.cu`` on CUDA tensors
-    (same contract as :func:`modexp_rows_plain`)."""
+    (same contract as :func:`modexp_rows_plain`).  ``tpi`` and
+    ``threads`` time another group and block size than the launch
+    geometry's own (``geometry.launch_geometry``)."""
     base = base.to(torch.int32).contiguous()
     exp = exp.to(device=base.device, dtype=torch.int32).contiguous()
     dm = rm.table
     B, le16 = base.shape[0], exp.shape[1]
     build.require_rows("modexp_rows base", base, B, dm.L16)
     build.require_rows("modexp_rows exp", exp, B, le16)
+    _require_odd(rm, reduce_impl)
+    mont = reduce_impl == "montgomery"
     midx = build.require_index("modexp_rows", rm, B, base.device)
     out = torch.empty((B, dm.L16), dtype=torch.int32, device=base.device)
     if B == 0:
         return out
-    body = geometry.body_name("modexp_rows", "barrett", method)
-    g = geometry.launch_geometry(body, B, dm.L32, tpi)
+    body = geometry.body_name("modexp_rows", reduce_impl, method)
+    g = geometry.launch_geometry(body, B, dm.L32, tpi, threads)
+    field = (dm.r1, dm.r2, dm.mp) if mont else (dm.muw, dm.mw, dm.mw)
     launch = build.launcher("modexp_rows")
     with torch.cuda.device(base.device):
         rc = launch(base.data_ptr(), exp.data_ptr(), out.data_ptr(), B,
-                    dm.L16, le16, dm.mw.data_ptr(), dm.muw.data_ptr(),
-                    midx.data_ptr(), dm.L32, int(method == "win4"), g.tpi,
-                    g.words, g.threads, g.blocks, g.smem,
+                    dm.L16, le16, dm.mw.data_ptr(),
+                    *(x.data_ptr() for x in field), midx.data_ptr(), dm.L32,
+                    int(mont), int(method == "win4"), g.tpi, g.words,
+                    g.threads, g.blocks, g.smem,
                     torch.cuda.current_stream(base.device).cuda_stream)
     build.check(rc, body)
     build.count_launch(body, B, dm.L32)
@@ -210,11 +226,12 @@ def modexp_limbs(base: torch.Tensor, exp: torch.Tensor, dm: cm.DeviceModulus,
 
 
 def modexp_rows_limbs(base: torch.Tensor, exp: torch.Tensor,
-                      rm: cm.RowsModulus, method: str) -> torch.Tensor:
+                      rm: cm.RowsModulus, method: str,
+                      reduce_impl: str) -> torch.Tensor:
     """Kernel on a CUDA tensor, plain version on a CPU tensor."""
     if base.device.type == "cuda":
-        return modexp_rows_cuda(base, exp, rm, method)
-    return modexp_rows_plain(base, exp, rm, method)
+        return modexp_rows_cuda(base, exp, rm, method, reduce_impl)
+    return modexp_rows_plain(base, exp, rm, method, reduce_impl)
 
 
 def modexp_fixed_limbs(base: torch.Tensor, windows: Sequence[int],

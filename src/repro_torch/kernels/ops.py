@@ -16,7 +16,10 @@ picks the per-element ladder: ``win4`` (default) or ``binary``.
 
 The rows layer (:func:`rows_modulus`, :func:`mulmod_rows`,
 :func:`modexp_rows`, :func:`prod_rows`) takes one modulus per row, each a
-tenant's n^2 in the serving path's cross-tenant launches.  Its public
+tenant's n^2 in the serving path's cross-tenant launches; ``modexp_rows``
+follows ``REPRO_REDUCE_IMPL`` as ``modexp`` does (Montgomery by default,
+Barrett for a table with an even modulus), ``mulmod_rows`` and
+``prod_rows`` are Barrett, as standalone ``mulmod`` is.  Its public
 layout is the port's (B, L16) radix-2^16 int32 on the device, not the
 reference's radix-256 numpy rows; the reference pads batches and
 exponent widths to powers of two only to bound JAX retraces, and the
@@ -149,14 +152,14 @@ def active_reduce_impl() -> str:
     return impl
 
 
-def _resolve_reduce(pack: ModulusPack, reduce_impl: str | None) -> str:
+def _resolve_reduce(odd: bool, reduce_impl: str | None) -> str:
+    """``reduce_impl`` or the knob, validated; Barrett unless every
+    modulus of the launch is ``odd`` (REDC needs m odd)."""
     impl = reduce_impl or active_reduce_impl()
     if impl not in REDUCE_IMPLS:
         raise ValueError(f"unknown reduce_impl {impl!r}; expected one of "
                          f"{REDUCE_IMPLS}")
-    if impl == "montgomery" and pack.mp32 is None:
-        return "barrett"            # even modulus: REDC needs m odd
-    return impl
+    return impl if odd else "barrett"
 
 
 def _operand(x, L16: int, device) -> torch.Tensor:
@@ -214,7 +217,7 @@ def modexp(base16, exp16, pack: ModulusPack, device=None,
     """
     method = method or MODEXP_METHOD
     _validate_method(method, np.shape(exp16)[1] * bi.LIMB_BITS)
-    impl = _resolve_reduce(pack, reduce_impl)
+    impl = _resolve_reduce(pack.mp32 is not None, reduce_impl)
     base = _operand(base16, pack.L16, device)
     if base.shape[0] == 0:
         return torch.zeros((0, pack.L16), dtype=torch.int32,
@@ -234,7 +237,7 @@ def modexp_fixed(base16, e: int, pack: ModulusPack, device=None,
     if e < 0:
         raise ValueError("modexp_fixed requires a non-negative exponent; "
                          "invert the base host-side first")
-    impl = _resolve_reduce(pack, reduce_impl)
+    impl = _resolve_reduce(pack.mp32 is not None, reduce_impl)
     base = _operand(base16, pack.L16, device)
     if base.shape[0] == 0:
         return torch.zeros((0, pack.L16), dtype=torch.int32,
@@ -253,7 +256,8 @@ def modexp_fixed_pair(bases, exps, packs, device=None,
     if min(exps) < 0:
         raise ValueError("modexp_fixed requires a non-negative exponent; "
                          "invert the base host-side first")
-    impls = tuple(_resolve_reduce(p, reduce_impl) for p in packs)
+    impls = tuple(_resolve_reduce(p.mp32 is not None, reduce_impl)
+                  for p in packs)
     bp = _operand(bases[0], packs[0].L16, device)
     bq = _same_device(_operand(bases[1], packs[1].L16, bp.device), bp)
     return modexp_fixed_pair_limbs(
@@ -277,8 +281,9 @@ def _check_row_modulus(m: int, L8: int) -> None:
 
 @functools.lru_cache(maxsize=64)
 def _rows_table(moduli: tuple, L8: int, device: str) -> cm.DeviceModulus:
-    """The Barrett material of ``moduli`` (all of exactly L8 bytes) with a
-    leading table axis, on ``device``."""
+    """The Barrett and Montgomery material of ``moduli`` (all of exactly
+    L8 bytes) with a leading table axis, on ``device``; no Montgomery
+    material when any modulus is even."""
     L16 = -(-L8 // 2)
     L32 = -(-L16 // 2)
     W = 2 * L32
@@ -286,17 +291,27 @@ def _rows_table(moduli: tuple, L8: int, device: str) -> cm.DeviceModulus:
     def t(rows):
         return torch.as_tensor(np.stack(rows), device=device)
 
+    mont = [mg.mont_constants(m, L32, limb_bits=32) for m in moduli]
+    mp = minv = r1 = r2 = None
+    if all(mont):
+        R = 1 << (32 * L32)
+        # -m^{-1} mod 2^32 as the int32 of the same bits
+        mp = torch.tensor([c[0] - (c[0] >> 31 << 32) for c in mont],
+                          dtype=torch.int32, device=device)
+        minv = t([bi.from_int((-pow(m, -1, R)) % R, W) for m in moduli])
+        r1 = t([bi.from_int(c[1], W) for c in mont])
+        r2 = t([bi.from_int(c[2], W) for c in mont])
     return cm.DeviceModulus(
         L16=L16, L32=L32,
         m16=t([bi.from_int(m, L16) for m in moduli]),
         mu16=t([bi.barrett_mu(m, L16) for m in moduli]),
         mw=t([bi.from_int(m, W) for m in moduli]),
         muw=t([bi.from_int((1 << (64 * L32)) // m, W + 2) for m in moduli]),
-        mp=None, minv=None, r1=None, r2=None)
+        mp=mp, minv=minv, r1=r1, r2=r2)
 
 
 def rows_modulus(ms, L8: int, device=None) -> cm.RowsModulus:
-    """Per-row Barrett material: row i reduces mod ``ms[i]``.
+    """Per-row modulus material: row i reduces mod ``ms[i]``.
 
     Every modulus must have EXACT byte length ``L8`` (same-width
     clustering is the caller's, the coalescer's, fusion invariant): one
@@ -344,10 +359,13 @@ def mulmod_rows(a: torch.Tensor, b: torch.Tensor,
 
 
 def modexp_rows(base: torch.Tensor, exp: torch.Tensor, rm: cm.RowsModulus,
-                method: str | None = None) -> torch.Tensor:
+                method: str | None = None,
+                reduce_impl: str | None = None) -> torch.Tensor:
     """base^exp mod m row-wise, per-row moduli AND exponents: base
-    (B, L16), exp (B, Le16) radix-2^16 -> (B, L16); Barrett, the ladder
-    by ``method`` ("win4" default, or "binary")."""
+    (B, L16), exp (B, Le16) radix-2^16 -> (B, L16); the ladder by
+    ``method`` ("win4" default, or "binary"), the reduction by
+    ``reduce_impl`` (default ``REPRO_REDUCE_IMPL``, read per call:
+    Montgomery, or Barrett for a table with an even modulus)."""
     method = method or MODEXP_METHOD
     base = _rows_operand(base, rm, "modexp_rows base")
     if not isinstance(exp, torch.Tensor) or exp.ndim != 2 \
@@ -355,9 +373,10 @@ def modexp_rows(base: torch.Tensor, exp: torch.Tensor, rm: cm.RowsModulus,
         raise ValueError(f"modexp_rows exp: expected ({rm.B}, Le16), got "
                          f"{getattr(exp, 'shape', type(exp))}")
     _validate_method(method, exp.shape[1] * bi.LIMB_BITS)
+    impl = _resolve_reduce(rm.montgomery, reduce_impl)
     if rm.B == 0:
         return torch.zeros_like(base)
-    return modexp_rows_limbs(base, _same_device(exp, base), rm, method)
+    return modexp_rows_limbs(base, _same_device(exp, base), rm, method, impl)
 
 
 def prod_rows(x: torch.Tensor, rm: cm.RowsModulus) -> torch.Tensor:

@@ -23,10 +23,12 @@ vec arm, the collaborative mode, a consensus family through secure
 aggregation and a churned run) and small runs of the event-driven
 runtime (sync gold and vec, deadline gold) are held against the same
 runs on the CPU.  The serving path's per-row-modulus bodies
-(``mulmod_rows``, ``modexp_rows`` with both ladders) are held against
-their plain versions and Python ints at k = 8, 64 and 128 with three
-moduli per launch (one with a top byte of 1), ragged batches and
-2,048-bit exponents at n^2; the rows Paillier ops on the card against
+(``mulmod_rows``, ``modexp_rows`` with both reductions and both ladders)
+are held against their plain versions and Python ints at k = 8, 32, 64
+and 128 with three moduli per launch (one with a top byte of 1, and an
+even one for the Barrett bodies), ragged batches, every group and block
+size the Montgomery bodies' sweep times at n^2, and 2,048-bit exponents
+at n^2; the rows Paillier ops on the card against
 the CPU; and a small ``ProtocolEngine`` run on the card against its
 tenants' solo runs.  The ten reduced language models in float32 give
 the same greedy tokens on the card as on the CPU, with logits within
@@ -481,30 +483,40 @@ def test_modexp_fixed_barrett_every_group_size(dev, tpi, kind):
 # per-row-modulus kernels (the serving path's cross-tenant launches)
 # ---------------------------------------------------------------------------
 
-ROWS_WIDTHS = (8, 64, 128)
-ROWS_BODIES = ("modexp_rows[barrett,win4]", "modexp_rows[barrett,binary]")
+ROWS_WIDTHS = (8, 32, 64, 128)
+ROWS_BODIES = ("modexp_rows[barrett,win4]", "modexp_rows[barrett,binary]",
+               "modexp_rows[montgomery,win4]",
+               "modexp_rows[montgomery,binary]")
+MONT_ROWS_BODIES = ROWS_BODIES[2:]
 
 
-def _rows_moduli(k: int) -> list:
-    """Three moduli of exactly 4k bytes: random odd, random even, and one
-    whose top byte is 1 (Barrett's quotient estimate is loosest there)."""
+def _rows_moduli(k: int, odd_only: bool = False) -> list:
+    """Three moduli of exactly 4k bytes: random odd, random even (odd for
+    Montgomery), and one whose top byte is 1 (Barrett's quotient estimate
+    is loosest there)."""
     rng = random.Random(k * 101)
     odd = rng.getrandbits(32 * k) | (1 << (32 * k - 1)) | 1
     top1 = (1 << (32 * k - 8)) | rng.getrandbits(32 * k - 8) | 1
-    return [odd, odd - 1, top1]
+    return [odd, odd - 2 if odd_only else odd - 1, top1]
 
 
-def _rows_case(k: int, B: int, dev):
+def _rows_case(k: int, B: int, dev, odd_only: bool = False):
     """A per-row modulus over B rows cycling through three moduli."""
-    ms = _rows_moduli(k)
+    ms = _rows_moduli(k, odd_only)
     per_row = [ms[i * i % 3] for i in range(B)]
     return per_row, ops.rows_modulus(per_row, 4 * k, dev)
 
 
 def _rows_batches(body: str) -> tuple:
-    per_block = geometry.BLOCK_THREADS[body.split("[")[0]] \
-        // geometry.TPI[body]
+    per_block = geometry.launch_geometry(body, 1,
+                                         geometry.MAX_WORDS).per_block
     return (1, 77, per_block + 1, 130)
+
+
+def _rows_body(body: str) -> tuple:
+    """(reduce_impl, method) of a ``modexp_rows[...]`` body."""
+    impl, method = body[len("modexp_rows["):-1].split(",")
+    return impl, method
 
 
 @pytest.mark.parametrize("k", ROWS_WIDTHS)
@@ -546,10 +558,10 @@ def test_mulmod_rows_every_group_size(dev, k, tpi):
 @pytest.mark.parametrize("body, B", [(body, B) for body in ROWS_BODIES
                                      for B in _rows_batches(body)])
 def test_modexp_rows_matches_plain_and_ints(dev, k, body, B):
-    """Both ladders, three moduli per launch, per-row exponents 0, 1, one
+    """Every body, three moduli per launch, per-row exponents 0, 1, one
     whose 4-bit windows take all 16 values and random 64-bit ones."""
-    method = body.split(",")[1].rstrip("]")
-    per_row, rm = _rows_case(k, B, dev)
+    impl, method = _rows_body(body)
+    per_row, rm = _rows_case(k, B, dev, impl == "montgomery")
     rng = random.Random(k * 17 + B)
     base, bt = _rows(rng, B, rm.table.L16, dev)
     exps, et = _rows(rng, B, 4, dev)
@@ -557,24 +569,47 @@ def test_modexp_rows_matches_plain_and_ints(dev, k, body, B):
         exps[i] = e
         et[i] = torch.as_tensor(bi.from_ints([e], 4)[0], device=dev)
     before = build.LAUNCHES[body]
-    out = mx.modexp_rows_cuda(bt, et, rm, method)
+    out = mx.modexp_rows_cuda(bt, et, rm, method, impl)
     torch.cuda.synchronize()
     assert build.LAUNCHES[body] == before + 1
-    assert torch.equal(out, mx.modexp_rows_plain(bt, et, rm, method))
+    assert torch.equal(out, mx.modexp_rows_plain(bt, et, rm, method, impl))
     assert bi.to_ints(out) == [pow(x, e, m)
                                for x, e, m in zip(base, exps, per_row)]
 
 
+@pytest.mark.parametrize("body, tpi, threads", [
+    (body, tpi, threads) for body in MONT_ROWS_BODIES
+    for tpi in sorted({t for t, _ in geometry.SHAPES[body]})
+    for threads in geometry.SWEEP_THREADS])
+def test_modexp_rows_montgomery_every_geometry(dev, body, tpi, threads):
+    """Every group and block size the sweep times, at n^2 (k = 128)."""
+    impl, method = _rows_body(body)
+    per_row, rm = _rows_case(128, 77, dev, True)
+    rng = random.Random(tpi * threads)
+    base, bt = _rows(rng, 77, rm.table.L16, dev)
+    exps, et = _rows(rng, 77, 4, dev)
+    out = mx.modexp_rows_cuda(bt, et, rm, method, impl, tpi=tpi,
+                              threads=threads)
+    torch.cuda.synchronize()
+    assert bi.to_ints(out) == [pow(x, e, m)
+                               for x, e, m in zip(base, exps, per_row)]
+
+
+@pytest.mark.parametrize("impl", ("montgomery", "barrett"))
 @pytest.mark.parametrize("method", ("win4", "binary"))
-def test_modexp_rows_long_exponents_at_n2(dev, method):
-    """2,048-bit exponents (r^n, c^lam) at k = 128, held against ints."""
-    per_row, rm = _rows_case(128, 5, dev)
+def test_modexp_rows_long_exponents_at_n2(dev, impl, method):
+    """2,048-bit exponents (r^n, c^lam) at k = 128, held against ints and
+    the plain version."""
+    per_row, rm = _rows_case(128, 5, dev, impl == "montgomery")
     rng = random.Random(5)
     base, bt = _rows(rng, 5, rm.table.L16, dev)
     exps, et = _rows(rng, 5, 128, dev)
-    out = ops.modexp_rows(bt, et, rm, method=method)
+    before = build.LAUNCHES[f"modexp_rows[{impl},{method}]"]
+    out = ops.modexp_rows(bt, et, rm, method=method, reduce_impl=impl)
+    assert build.LAUNCHES[f"modexp_rows[{impl},{method}]"] == before + 1
     assert bi.to_ints(out) == [pow(x, e, m)
                                for x, e, m in zip(base, exps, per_row)]
+    assert torch.equal(out, mx.modexp_rows_plain(bt, et, rm, method, impl))
 
 
 def test_rows_paillier_ops_on_card_equal_cpu(dev):
@@ -622,7 +657,7 @@ def test_serving_engine_on_card_equals_solo_runs(dev):
         eng.admit(inst.A, inst.y, cfg, tid=tid)
     res = eng.run()
     assert eng.stats()["serve"]["fused_launches"] > 0
-    for body in ("mulmod_rows", "modexp_rows[barrett,win4]"):
+    for body in ("mulmod_rows", "modexp_rows[montgomery,win4]"):
         assert build.LAUNCHES[body] > 0, build.LAUNCHES
     for tid, cfg in cfgs.items():
         rt, master, wl, mode = runner.build_runtime(inst.A, inst.y, cfg)

@@ -399,6 +399,14 @@ def test_launch_geometry_covers_every_width(body):
     ("modexp_rows[barrett,win4]", 442_368, 128, (16, 8, 4, 110_592, 32768)),
     ("modexp_rows[barrett,win4]", 4_608, 128, (16, 8, 4, 1152, 32768)),
     ("modexp_rows[barrett,binary]", 4_608, 128, (8, 16, 8, 576, 0)),
+    # the Montgomery per-row bodies (the default reduction): the fused
+    # matvec, the round encryptions and decryptions
+    ("modexp_rows[montgomery,win4]", 442_368, 128,
+     (16, 8, 4, 110_592, 32768)),
+    ("modexp_rows[montgomery,win4]", 4_608, 128, (16, 8, 4, 1152, 32768)),
+    ("modexp_rows[montgomery,win4]", 2_304, 128, (16, 8, 4, 576, 32768)),
+    ("modexp_rows[montgomery,win4]", 4_608, 64, (16, 4, 4, 1152, 16384)),
+    ("modexp_rows[montgomery,binary]", 4_608, 128, (16, 8, 4, 1152, 0)),
     ("mulmod_rows", 221_184, 128, (16, 8, 4, 55_296, 0)),
     ("mulmod_rows", 2_304, 128, (32, 4, 2, 1152, 0)),
 ])
@@ -412,9 +420,34 @@ def test_launch_geometry_main_path_shapes(body, B, k, want):
     (body, tpi) for body in geometry.BODIES
     for tpi in sorted({t for t, _ in geometry.SHAPES[body]})])
 def test_launch_geometry_group_size_candidates(body, tpi):
-    """Every group size timed against the chosen one holds 64 words."""
-    g = geometry.launch_geometry(body, 192, 64, tpi=tpi)
-    assert g.tpi == tpi and tpi * g.words == 64
+    """Every group size timed against the chosen one holds 64 words (the
+    per-row Montgomery bodies': 128, the width of their sweep)."""
+    k = 128 if body.startswith("modexp_rows[montgomery") else 64
+    g = geometry.launch_geometry(body, 192, k, tpi=tpi)
+    assert g.tpi == tpi and tpi * g.words == k
+
+
+@pytest.mark.parametrize("body, tpi, threads", [
+    (body, tpi, threads)
+    for body in ("modexp_rows[montgomery,win4]",
+                 "modexp_rows[montgomery,binary]")
+    for tpi in sorted({t for t, _ in geometry.SHAPES[body]})
+    for threads in geometry.SWEEP_THREADS])
+def test_launch_geometry_sweep_block_sizes(body, tpi, threads):
+    """The sweep's candidates at n^2: each group size in 64- and
+    128-thread blocks, the win4 table growing with the block."""
+    g = geometry.launch_geometry(body, 4_608, 128, tpi=tpi, threads=threads)
+    assert (g.tpi, g.threads, g.per_block) == (tpi, threads,
+                                                threads // tpi)
+    assert g.blocks == -(-4_608 // g.per_block)
+    assert g.smem == (16 * 128 * 4 * g.per_block if body.endswith("win4]")
+                      else 0)
+
+
+def test_launch_geometry_rejects_partial_warps():
+    with pytest.raises(ValueError, match="whole number of warps"):
+        geometry.launch_geometry("modexp_rows[montgomery,win4]", 192, 128,
+                                 threads=48)
 
 
 @pytest.mark.parametrize("tpi", sorted({t for t, _ in
@@ -470,8 +503,9 @@ def test_body_names_are_the_launch_counter_keys():
         names.add(geometry.body_name("modexp_fixed", impl))
         for method in ("win4", "binary"):
             names.add(geometry.body_name("modexp", impl, method))
-    for method in ("win4", "binary"):     # the per-row bodies: Barrett only
-        names.add(geometry.body_name("modexp_rows", "barrett", method))
+    for impl in ("montgomery", "barrett"):  # the per-row bodies
+        for method in ("win4", "binary"):
+            names.add(geometry.body_name("modexp_rows", impl, method))
     assert names == set(geometry.BODIES)
     # every launcher is exported by one of the three sources
     assert {src for src, _, _ in build.KERNELS.values()} == \
