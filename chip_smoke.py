@@ -6,9 +6,10 @@ It imports only ``repro_torch`` (from ``src/``), never JAX or the JAX
 package, and:
 
 1. requires a CUDA card and prints its name and power limit;
-2. builds the three hand-written kernel sources from ``src/repro_torch/
+2. builds the four hand-written kernel sources from ``src/repro_torch/
    kernels/csrc`` (one ``nvcc`` per source, in parallel; mulmod.cu and
-   modexp.cu also hold the per-row-modulus kernels of the serving path)
+   modexp.cu also hold the per-row-modulus kernels of the serving path,
+   prodtree.cu the product tree of every matvec)
    and prints the build time and each instantiation's registers, stack
    frame and spills; every
    instantiation (each runs a group of threads per integer with its words
@@ -22,11 +23,10 @@ package, and:
    which also hold the wrapper's host time) beside its plain version on
    the same inputs and holds the two outputs against each other and
    against Python ints on a sample (mulmod at each of its main-path
-   shapes: B = 192 on p^2 and on n^2, each level of the product tree on
-   n^2 and B = 36,864 on p^2); times every body's group-size candidates
-   (mulmod's at each shape) on the same inputs and holds their outputs
-   the same way, and times the main path's two-half modexp_fixed launch
-   (p^2 and q^2 rows in one launch) against two launches;
+   shapes: B = 36,864 and 192 on p^2, B = 192 on n^2); times every
+   body's group-size candidates (mulmod's at each shape) on the same
+   inputs and holds their outputs the same way, and times the main path's two-half modexp_fixed
+   launch (p^2 and q^2 rows in one launch) against two launches;
 4. runs the main path — gold-cipher private LASSO at the paper's Fig. 6
    key and quantizer (2048-bit keys, Delta = 1e15, K = 3, rho = lam = 1)
    with the scale cut to N = 576, M = 64, 3 iterations — and the plain
@@ -44,7 +44,8 @@ package, and:
 7. runs the main path of step 4 under ``REPRO_REDUCE_IMPL=barrett`` (the
    reference's Barrett arm, set for this phase only): the same checks
    against the same plain history, with modexp[barrett,win4] and
-   modexp_fixed[barrett] launched and no Montgomery body;
+   modexp_fixed[barrett] launched and no Montgomery body but the product
+   tree's (its body follows the moduli: Montgomery when all are odd);
 8. runs ``modexp`` at the shapes the protocol surface adds: the ``vec``
    arm's matvec at n^2 (k = 128 words, B = 36,864, 64-bit exponents;
    Montgomery and Barrett win4, the plain version on the first 1,024
@@ -112,10 +113,15 @@ package, and:
     cache, ``python -m repro_torch.obs.report --json`` on the trace and
     ``python -m repro_torch.obs.sentinel --json`` on this run's ledger as
     subprocesses (the sentinel may report perf findings, exit 1; exit 2
-    or a correctness finding fails).  ``ops.prod_rows`` at S1's fused
-    matvec (2,304 rows of 192 factors at n^2 over four moduli) is timed
-    as a whole tree of ``mulmod_rows`` launches beside the sum of its
-    levels' bounds, and held against its plain version and Python ints;
+    or a correctness finding fails).  The product-tree kernel
+    (``prodtree.cu``, both bodies) at S1's fused matvec (2,304 rows of 192
+    factors at n^2 over four moduli), the main path's (192 rows, one
+    modulus), the runtime's (576 rows) and on a table with an even
+    modulus is timed in turns with the tree of ``mulmod_rows`` /
+    ``mulmod`` launches it replaced (rebuilt here from the public ops),
+    held against its plain version (on the card) and Python ints on sample
+    rows and against the old tree on every row, with the sweep of its
+    group size, groups a row and block size;
 12. runs the LM serving stack (``repro_torch.models``, ``serve.engine``,
     ``launch.serve``; plain PyTorch, bfloat16 matmuls on a weight copy
     the engine casts once): L1, Yi-9B at its full configuration (48
@@ -252,12 +258,16 @@ BODY_SOURCES = {
                                      "src/repro/kernels/ops.py:417"),
     "modexp_rows[montgomery,binary]": ("modexp.cu",
                                        "src/repro/kernels/ops.py:417"),
+    # the product tree of every matvec (the reference's jitted
+    # _prod_rows8, and mul_tree's levels of mulmod_pallas)
+    "prod_rows[montgomery]": ("prodtree.cu", "src/repro/kernels/ops.py:439"),
+    "prod_rows[barrett]": ("prodtree.cu", "src/repro/kernels/ops.py:439"),
 }
 MAIN_PATH_BODIES = ("mulmod", "modexp[montgomery,win4]",
-                    "modexp_fixed[montgomery]")
+                    "modexp_fixed[montgomery]", "prod_rows[montgomery]")
 # the main path under REPRO_REDUCE_IMPL=barrett
 BARRETT_ARM_BODIES = ("mulmod", "modexp[barrett,win4]",
-                      "modexp_fixed[barrett]")
+                      "modexp_fixed[barrett]", "prod_rows[montgomery]")
 # every instantiation must keep its rows in registers
 MAX_STACK = 256
 
@@ -338,14 +348,15 @@ def build_kernels(build):
     templates = {name.split("<")[0] for name in rows}
     assert templates == {"mulmod_kernel", "modexp_kernel",
                          "modexp_fixed_kernel", "mulmod_rows_kernel",
-                         "modexp_rows_kernel"}, \
+                         "modexp_rows_kernel", "prod_rows_kernel"}, \
         f"kernel templates in the ptxas report: {sorted(templates)}"
     # every body of modexp and of the per-row modexp (window x product)
     # and of modexp_fixed
     both = (",true,true>", ",false,true>", ",true,false>", ",false,false>")
     for template, bodies in (("modexp_kernel", both),
                              ("modexp_fixed_kernel", (",true>", ",false>")),
-                             ("modexp_rows_kernel", both)):
+                             ("modexp_rows_kernel", both),
+                             ("prod_rows_kernel", (",true>", ",false>"))):
         for tail in bodies:
             assert any(n.startswith(template + "<") and n.endswith(tail)
                        for n in rows), f"no {template}<...{tail}"
@@ -378,11 +389,16 @@ def _barrett(k):
     return (k + 1) ** 2 - k * (k - 1) // 2 + k + k * (k + 1) // 2
 
 
-def word_products(kernel, k, exp_bits=0, mont=True, win4=True):
+def word_products(kernel, k, exp_bits=0, mont=True, win4=True, factors=0):
     """Least 32x32-bit word products one element of a launch needs, by
-    the kernel's ladder with the squaring saving taken."""
+    the kernel's ladder with the squaring saving taken; for ``prod_rows``
+    one row's product of ``factors``: N - 1 modular products, each a
+    product and the cheaper reduction, whatever the body."""
     if kernel == "mulmod":
         return _product(k, False) + _barrett(k)
+    if kernel == "prod_rows":
+        return (factors - 1) * (_product(k, False)
+                                + min(_redc(k), _barrett(k)))
     if win4:                                   # 4-bit windows; fixed too
         squares, others = exp_bits, exp_bits // 4 + 14
     else:                                      # binary: res*b, b*b per bit
@@ -423,6 +439,8 @@ def kernel_symbol(body):
         return "mulmod_kernel"
     if body.startswith("modexp_fixed"):
         return "modexp_fixed_kernel"
+    if body.startswith("prod_rows"):
+        return "prod_rows_kernel"
     return "modexp_kernel"
 
 
@@ -590,15 +608,11 @@ def time_kernels(key, packs, bi, geometry, mg, lm, mx, dev):
             f"{two_ms:.3f} ms; equal")
         return dict(pair_ms=pair_ms, two_launches_ms=two_ms, B=2 * NK)
 
-    # mulmod at each main-path shape: the first level of the n^2 product
-    # tree (Nk^2 / 2 rows) first, the shape the kernel table has used from
-    # the start; one encryption's or sum's Nk rows on n^2; the CRT and
-    # half-space multiplies' Nk rows on p^2; an edge's matvec reduced into
-    # p^2; the tree's other levels on n^2, where the card goes from nearly
-    # empty to full
-    for width, B in (("n2", NK * NK // 2), ("n2", NK), ("p2", NK),
-                     ("p2", NK * NK), ("n2", 3 * NK), ("n2", 6 * NK),
-                     ("n2", 12 * NK), ("n2", 24 * NK), ("n2", 48 * NK)):
+    # mulmod at each main-path shape: an edge's matvec reduced into p^2
+    # (Nk^2 rows) first, the kernel table's shape; one encryption's or
+    # sum's Nk rows on n^2; the CRT and half-space multiplies' Nk rows on
+    # p^2
+    for width, B in (("p2", NK * NK), ("n2", NK), ("p2", NK)):
         pack = packs[width]
         dm = pack.on(dev)
         (a, at), (b, bt) = rows(B, pack.L16), rows(B, pack.L16)
@@ -743,6 +757,16 @@ def check_launches(path, launches, bodies, absent=()):
             f"the {path}"
 
 
+def check_one_tree(path, launches, modexp_body, tree_body):
+    """One product-tree launch per matvec, whose two CRT halves each run
+    one ``modexp`` launch."""
+    assert launches[modexp_body] == 2 * launches[tree_body] > 0, \
+        f"{path}: {launches[tree_body]} product trees for " \
+        f"{launches[modexp_body]} matvec halves"
+    log(f"  {path}: one product-tree launch per matvec "
+        f"({launches[tree_body]}); mulmod launches {launches['mulmod']}")
+
+
 def check_first_round(box, gold, bi):
     """Replay the blinding rng: the share phase's K encryptions, then the
     first round's (z, v) pair per edge; each of the first round's calls'
@@ -794,6 +818,8 @@ def report_path(wall, secs, checked, launches, shape_launches):
 
 
 def _kernel_group(name):
+    if "prod_rows_kernel" in name:
+        return "prod_rows"
     if "mulmod_kernel" in name:
         return "mulmod"
     if "modexp_fixed" in name:
@@ -814,10 +840,11 @@ def time_split(protocol, lm, mx, QuantSpec, make_lasso, first_row,
     events around each kernel wrapper time every launch of the round with
     its batch size."""
     from torch.profiler import ProfilerActivity, profile, schedule
+    from repro_torch.kernels import prodtree
     inst = make_lasso(M, N, sparsity=0.1, noise=0.01, seed=SEED)
     records, recording, traces = [], [False], []
 
-    def timed(mod, attr, label):
+    def timed(mod, attr, label, dm_at=2):
         real = getattr(mod, attr)
 
         def wrapper(*args, **kwargs):
@@ -830,7 +857,8 @@ def time_split(protocol, lm, mx, QuantSpec, make_lasso, first_row,
             stop.record()
             rows = args[0] if isinstance(args[0], torch.Tensor) \
                 else args[0][0]                # a pair: B and k per half
-            dm = args[2] if not isinstance(args[2], tuple) else args[2][0]
+            dm = args[dm_at] if not isinstance(args[dm_at], tuple) \
+                else args[dm_at][0]
             records.append((label, int(rows.shape[0]), dm.L32, start,
                             stop))
             return result
@@ -840,7 +868,8 @@ def time_split(protocol, lm, mx, QuantSpec, make_lasso, first_row,
     patched = [timed(lm, "mulmod_cuda", "mulmod"),
                timed(mx, "modexp_cuda", "modexp"),
                timed(mx, "modexp_fixed_cuda", "modexp_fixed"),
-               timed(mx, "modexp_fixed_pair_cuda", "modexp_fixed pair")]
+               timed(mx, "modexp_fixed_pair_cuda", "modexp_fixed pair"),
+               timed(prodtree, "prod_rows_cuda", "prod_rows", dm_at=1)]
     real_lap = protocol._PhaseClock.lap
 
     def on_trace(prof):
@@ -1266,8 +1295,37 @@ def _sample(B):
     return sorted({*range(n), *range(B - n, B)})
 
 
+def _tree_sample(x, table, midx, corr, out, sel, impl, device="cpu"):
+    """Rows ``sel`` of a product-tree launch, on ``device``: their factors
+    and results, each row's modulus material as a table of its own (row i
+    of every table tensor, and of the R^N correction, is sample row i's),
+    the factors a row and the launch's default groups a row."""
+    from repro_torch.kernels import common as cm
+    from repro_torch.kernels import geometry
+    idx = torch.as_tensor(sel, device=x.device)
+    rows = midx[idx] if midx is not None else torch.zeros(
+        len(sel), dtype=torch.int32, device=x.device)
+    dm = cm.RowsModulus(table, rows, ()).per_row()
+    g = geometry.tree_geometry(geometry.body_name("prod_rows", impl),
+                               int(x.shape[0]), int(x.shape[1]), table.L32)
+    return dict(x=x[idx].to(device), out=out[idx].to(device),
+                dm=_host_modulus(dm) if device == "cpu" else dm,
+                corr=None if corr is None else corr[rows.long()].to(device),
+                N=int(x.shape[1]), groups=g.groups, impl=impl)
+
+
+def _tree_plain(s):
+    """The plain product tree of a :func:`_tree_sample`, each sample row
+    under its own table row, at the launch's G."""
+    from repro_torch.kernels import prodtree
+    n = int(s["x"].shape[0])
+    midx = torch.arange(n, dtype=torch.int32, device=s["x"].device)
+    return prodtree.prod_rows_plain(s["x"], s["dm"], midx, s["impl"],
+                                    s["groups"], s["corr"])
+
+
 class ShapeRecorder:
-    """While installed, wraps the three kernel wrappers: every launch of a
+    """While installed, wraps the four kernel wrappers: every launch of a
     (body, B, k) shape not in ``seen`` gets CUDA events around it, and the
     first launch of each such shape keeps sample rows of its operands and
     result on the host.  :meth:`check` then holds each sample against the
@@ -1293,12 +1351,15 @@ class ShapeRecorder:
         return out, shape not in self.samples
 
     def __enter__(self):
+        from repro_torch.kernels import prodtree
         mx, lm, geometry = self.mx, self.lm, self.geometry
-        real_modexp, real_fixed, real_mulmod = (
-            mx.modexp_cuda, mx._launch_fixed, lm.mulmod_cuda)
-        self._real = {"modexp_cuda": real_modexp,
-                      "_launch_fixed": real_fixed,
-                      "mulmod_cuda": real_mulmod}
+        real_modexp, real_fixed, real_mulmod, real_prod = (
+            mx.modexp_cuda, mx._launch_fixed, lm.mulmod_cuda,
+            prodtree.prod_rows_cuda)
+        self._real = {(mx, "modexp_cuda"): real_modexp,
+                      (mx, "_launch_fixed"): real_fixed,
+                      (lm, "mulmod_cuda"): real_mulmod,
+                      (prodtree, "prod_rows_cuda"): real_prod}
 
         def modexp_cuda(base, exp, dm, method, reduce_impl, tpi=None):
             body = geometry.body_name("modexp", reduce_impl, method)
@@ -1348,13 +1409,27 @@ class ShapeRecorder:
                     L16=dm.L16)
             return out
 
+        def prod_rows_cuda(x, table, midx, reduce_impl, corr=None, tpi=None,
+                           groups=None, threads=None):
+            body = geometry.body_name("prod_rows", reduce_impl)
+            shape = (body, int(x.shape[0]), table.L32)
+            out, first = self._timed(shape, lambda: real_prod(
+                x, table, midx, reduce_impl, corr, tpi, groups, threads))
+            if first:
+                self.samples[shape] = dict(
+                    kind="prod_rows", L16=table.L16, **_tree_sample(
+                        x, table, midx, corr, out, _sample(shape[1]),
+                        reduce_impl))
+            return out
+
         mx.modexp_cuda, mx._launch_fixed, lm.mulmod_cuda = (
             modexp_cuda, launch_fixed, mulmod_cuda)
+        prodtree.prod_rows_cuda = prod_rows_cuda
         return self
 
     def __exit__(self, *exc):
-        for attr, fn in self._real.items():
-            setattr(self.lm if attr == "mulmod_cuda" else self.mx, attr, fn)
+        for (mod, attr), fn in self._real.items():
+            setattr(mod, attr, fn)
         return False
 
     def _fixed_plain(self):
@@ -1410,6 +1485,11 @@ class ShapeRecorder:
                                      exp_bits=s["exp_bits"],
                                      mont=s["impl"] == "montgomery")
                 moved = B * 2 * s["L16"] * 4
+            elif s["kind"] == "prod_rows":
+                got = [s["out"]]
+                want = [_tree_plain(s)]
+                work = word_products("prod_rows", k, factors=s["N"])
+                moved = B * (s["N"] + 1) * s["L16"] * 4
             else:
                 got = [s["out"]]
                 want = [lm.mulmod_plain(s["a"], s["b"], s["dm"])]
@@ -1607,9 +1687,10 @@ SERVE_PATHS = ("serve_s1", "serve_s2")
 #: the per-row-modulus bodies S1 launches (the binary ladder runs only
 #: under REPRO_MODEXP_METHOD=binary, Barrett under REPRO_REDUCE_IMPL=barrett
 #: or for an even modulus)
-SERVE_BODIES = ("mulmod_rows", "modexp_rows[montgomery,win4]")
+SERVE_BODIES = ("mulmod_rows", "modexp_rows[montgomery,win4]",
+                "prod_rows[montgomery]")
 BARRETT_ROWS_BODIES = ("modexp_rows[barrett,win4]",
-                       "modexp_rows[barrett,binary]")
+                       "modexp_rows[barrett,binary]", "prod_rows[barrett]")
 SERVE_ITERS = 2
 SERVE_SEEDS = (0, 1, 2, 3)
 #: S2's second key width
@@ -1844,8 +1925,8 @@ def time_rows_s1(bi, ops, mx, geometry, ptxas, dev):
 
 
 def tree_levels(n):
-    """The batch of each level of ``ops.prod_rows``'s tree over n
-    elements a row, per row (n/2 products, an odd one carried)."""
+    """The batch of each level of the tree of mulmods the product-tree
+    kernel replaced, per row (n/2 products, an odd one carried)."""
     levels = []
     while n > 1:
         h = n // 2
@@ -1854,55 +1935,193 @@ def tree_levels(n):
     return levels
 
 
-def time_prod_rows(bi, ops, dev):
-    """``ops.prod_rows`` at S1's fused matvec: one row per (tenant, edge,
-    output) of the four tenants' n^2 (k = 128), each the product of its
-    NK factors, each tenant's rows under its own modulus.  The whole tree
-    of ``mulmod_rows`` launches timed by CUDA events, its bound the sum
-    of the levels' bounds, its first rows held against the plain version
-    (the same call on host tensors) and Python ints."""
+def mulmod_tree(ops, x, rm=None, pack=None):
+    """The product over axis 1 as the port ran it before the product-tree
+    kernel (the reference's ``ops.prod_rows`` and ``paillier_vec.mul_tree``
+    trees): one ``mulmod_rows`` launch a level under the per-row moduli
+    ``rm``, or one ``mulmod`` launch a level under ``pack``; rebuilt from
+    the public ops, the yardstick of the kernel."""
+    R, n, L = x.shape
+    cur = x
+    while n > 1:
+        h = n // 2
+        a = cur[:, :h].reshape(R * h, L)
+        b = cur[:, h:2 * h].reshape(R * h, L)
+        prod = (ops.mulmod_rows(a, b, rm.repeat(h)) if rm is not None
+                else ops.mulmod(a, b, pack)).reshape(R, h, L)
+        if n % 2:
+            cur = torch.cat([prod, cur[:, n - 1:n]], dim=1)
+            n = h + 1
+        else:
+            cur, n = prod, h
+    return cur[:, 0]
+
+
+#: the product tree's shapes at n^2 (k = 128): (what, rows, factors a
+#: row, moduli, with an even modulus): S1's fused matvec over its tenants,
+#: the main path's edge matvec and the runtime's fused matvec of K edges
+#: (one modulus each, ``paillier_vec.mul_tree``), and a table with an even
+#: modulus (the Barrett body only)
+TREE_SHAPES = (("S1", len(SERVE_SEEDS) * K * NK, NK, len(SERVE_SEEDS), False),
+               ("main", NK, NK, 1, False),
+               ("runtime", K * NK, NK, 1, False),
+               ("even", NK, NK, len(SERVE_SEEDS), True))
+#: the sweep: threads per integer, groups a row (each in a block of one
+#: row and of at least 128 threads)
+TREE_SWEEP_TPI = (8, 16, 32)
+TREE_SWEEP_GROUPS = (1, 2, 4, 8, 16, 32, 64, 128)
+
+
+def tree_instantiation(body, g):
+    return (f"prod_rows_kernel<{g.tpi},{g.words},"
+            f"{str(body.endswith('[montgomery]')).lower()}>")
+
+
+def time_prod_rows(bi, ops, geometry, ptxas, dev):
+    """The product-tree kernel at ``TREE_SHAPES``: both bodies (Barrett
+    alone on the even table) timed by CUDA events in turns with the tree
+    of mulmods it replaced (old, bodies, bodies reversed, old) on the same
+    inputs, full-width factors (up to 2^4096 - 1); every body's output
+    equal to the old tree's on every row, and to its plain version (on
+    the card) and Python ints on SAMPLE_ROWS first and last rows.  Then
+    the sweep of (TPI, G, threads) of both bodies at the odd shapes, each
+    output equal to the default geometry's.  Returns (rows, sweep)."""
+    from repro_torch.kernels import prodtree
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 6)
     rng = random.Random(SEED + 6)
-    T = len(SERVE_SEEDS)
-    ms = [rng.getrandbits(4096) | (1 << 4095) | 1 for _ in range(T)]
-    R = T * K * NK
-    per_row = [ms[r // (K * NK)] for r in range(R)]
-    rm = ops.rows_modulus(per_row, 512, dev)
-    L16 = rm.table.L16
-    ints = [rng.getrandbits(16 * L16) for _ in range(R * NK)]
-    x = torch.as_tensor(bi.from_ints(ints, L16), device=dev).reshape(
-        R, NK, L16)
-    tree_ms, got = time_ms(lambda: ops.prod_rows(x, rm), 5)
-    rows = 8
-    plain_ms, plain = once_ms(lambda: ops.prod_rows(
-        x[:rows].cpu(), ops.rows_modulus(per_row[:rows], 512, "cpu")))
-    want = []
-    for r in range(2):
-        p = 1
-        for v in ints[r * NK:(r + 1) * NK]:
-            p = p * v % per_row[r]
-        want.append(p)
-    assert bi.to_ints(got[:2].cpu()) == want, \
-        "prod_rows differs from Python ints"
-    assert torch.equal(got[:rows].cpu(), plain), \
-        "prod_rows differs from its plain version"
-    levels = [R * h for h in tree_levels(NK)]
-    bound = sum(bound_ms(word_products("mulmod", 128), B,
-                         B * 3 * L16 * 4 + B * 4)[0] for B in levels)
-    log(f"  prod_rows at S1's matvec, {R} rows of {NK} factors at k=128 "
-        f"over {T} moduli: {len(levels)} mulmod_rows launches (B = "
-        f"{', '.join(map(str, levels))}), {tree_ms:.4f} ms per tree "
-        f"(bound {bound:.4f} ms, the sum of the levels'; plain "
-        f"{plain_ms:.1f} ms for {rows} rows on the host), equal")
-    return dict(shape=f"R={R} N={NK} k=128 over {T} moduli", R=R, N=NK,
-                levels=levels, ms=tree_ms, bound_ms=bound,
-                plain_ms=plain_ms, plain_rows=rows, max_abs_err=0)
+    rows, sweep = [], []
+    for what, R, n, T, even in TREE_SHAPES:
+        ms = [rng.getrandbits(4096) | (1 << 4095) | 1 for _ in range(T)]
+        if even:
+            ms[-1] -= 1
+        per_row = [ms[r * T // R] for r in range(R)]
+        if T > 1:
+            rm = ops.rows_modulus(per_row, 512, dev)
+            table, midx, moduli = rm.table, rm.midx, rm.moduli
+            old = functools.partial(mulmod_tree, ops, rm=rm)
+        else:
+            table = ops._rows_table(tuple(ms), 512, str(dev))
+            midx, moduli = None, tuple(ms)
+            old = functools.partial(mulmod_tree, ops,
+                                    pack=ops.pack_modulus(ms[0]))
+        L16 = table.L16
+        x = torch.randint(0, 1 << 16, (R, n, L16), generator=gen, device=dev,
+                          dtype=torch.int32)
+        corr = ops._tree_correction(moduli, table.L32, n, str(dev))
+        bodies = geometry.TREE_BODIES[1:] if even else geometry.TREE_BODIES
+
+        def launch(body, **geom):
+            impl = body[len("prod_rows["):-1]
+            return functools.partial(
+                prodtree.prod_rows_cuda, x, table, midx, impl,
+                corr if impl == "montgomery" else None, **geom)
+
+        reps = 2 if R > 1000 else 5
+        times, results = defaultdict(list), {}
+        for body in ("old",) + bodies + bodies[::-1] + ("old",):
+            fn = (lambda: old(x)) if body == "old" else launch(body)
+            t, results[body] = time_ms(fn, reps)
+            times[body].append(t)
+        sel = _sample(R)
+        xs = bi.to_ints(x[torch.as_tensor(sel, device=dev)].cpu())
+        want = []
+        for i, r in enumerate(sel):
+            p = 1
+            for v in xs[i * n:(i + 1) * n]:
+                p = p * v % per_row[r]
+            want.append(p)
+        levels = tree_levels(n)
+        for body in bodies:
+            impl = body[len("prod_rows["):-1]
+            got = results[body]
+            assert torch.equal(got, results["old"]), \
+                f"{body} {what}: differs from the tree of mulmods"
+            smp = _tree_sample(x, table, midx,
+                               corr if impl == "montgomery" else None, got,
+                               sel, impl, device=dev)
+            plain_ms, plain = once_ms(lambda: _tree_plain(smp))
+            err = compare(bi, f"{body} {what}", smp["out"], plain, want)
+            g = geometry.tree_geometry(body, R, n, table.L32)
+            inst = tree_instantiation(body, g)
+            regs = ptxas.get(inst, {})
+            check_spills(inst, regs)
+            bnd, by = bound_ms(word_products("prod_rows", 128, factors=n), R,
+                               R * (n + 1) * L16 * 4)
+            row = dict(body=body, what=what, B=R, k=128, factors=n, moduli=T,
+                       ms=float(np.mean(times[body])), turns_ms=times[body],
+                       old_tree_ms=float(np.mean(times["old"])),
+                       old_turns_ms=times["old"], old_launches=len(levels),
+                       bound_ms=bnd, bound_by=by,
+                       plain_ms=plain_ms, plain_rows=len(sel),
+                       max_abs_err=err, library_ms=None, tpi=g.tpi,
+                       groups=g.groups, threads=g.threads,
+                       instantiation=inst, **regs)
+            rows.append(row)
+            log(f"  {body} {what}: {R} rows of {n} factors at k=128 over {T}"
+                f" moduli ({inst}, G={g.groups}, {g.threads} threads: "
+                f"{regs.get('registers')} registers, "
+                f"{regs.get('spill_stores')} B spills): {row['ms']:.4f} ms "
+                f"(turns " + ", ".join(f"{t:.4f}" for t in times[body])
+                + f"), bound {bnd:.4f} ms; the tree of {len(levels)} mulmod "
+                f"launches {row['old_tree_ms']:.4f} ms (turns " + ", ".join(
+                    f"{t:.4f}" for t in times["old"])
+                + f"); plain {plain_ms:.1f} ms on {len(sel)} rows (card); "
+                f"equal to the old tree on every row, to the plain version "
+                f"and Python ints on {len(sel)}")
+        for body in (() if even else bodies):
+            default = results[body]
+            best = None
+            for tpi in TREE_SWEEP_TPI:
+                for G in TREE_SWEEP_GROUPS:
+                    cap = geometry.TREE_MAX_THREADS[tpi]
+                    if tpi * G > cap:
+                        continue
+                    for threads in sorted({max(tpi * G, 64),
+                                           min(cap, max(tpi * G, 128))}):
+                        g = geometry.tree_geometry(body, R, n, 128, tpi, G,
+                                                   threads)
+                        t, got = time_ms(launch(body, tpi=tpi, groups=G,
+                                                threads=threads), reps)
+                        assert torch.equal(got, default), (body, what, tpi,
+                                                           G, threads)
+                        inst = tree_instantiation(body, g)
+                        regs = ptxas.get(inst, {})
+                        check_spills(inst, regs)
+                        smem_int, regs_int = resident_integers(
+                            g, regs.get("registers", 0))
+                        bnd = bound_ms(word_products(
+                            "prod_rows", 128, factors=n), R,
+                            R * (n + 1) * L16 * 4)[0]
+                        row = dict(body=body, what=what, B=R, tpi=tpi,
+                                   groups=G, threads=threads, ms=t,
+                                   bound_ms=bnd,
+                                   registers=regs.get("registers"),
+                                   resident_groups_by_smem=smem_int,
+                                   resident_groups_by_regs=regs_int,
+                                   default=g == geometry.tree_geometry(
+                                       body, R, n, 128))
+                        sweep.append(row)
+                        if best is None or t < best["ms"]:
+                            best = row
+            log(f"  sweep {body} {what}: fastest TPI {best['tpi']}, G "
+                f"{best['groups']}, {best['threads']} threads: "
+                f"{best['ms']:.4f} ms; default "
+                f"{float(np.mean(times[body])):.4f} ms; TPI/G/threads ms: "
+                + ", ".join(
+                    f"{r['tpi']}/{r['groups']}/{r['threads']} {r['ms']:.3f}"
+                    for r in sweep if r["body"] == body and r["what"] == what))
+        del results, x
+        torch.cuda.empty_cache()
+    return rows, sweep
 
 
 class LaunchRecorder:
-    """While installed, wraps the five kernel wrappers: CUDA events around
+    """While installed, wraps the six kernel wrappers: CUDA events around
     every launch, keyed by (body, B, k); the first launch of each
-    per-row-modulus shape (body, B, k, exponent limbs) keeps sample rows
-    of its operands, its rows' moduli and its result on the card.
+    per-row-modulus shape (body, B, k, exponent limbs; the product tree's
+    (body, rows, k, factors a row)) keeps sample rows of its operands, its
+    rows' moduli and its result on the card.
     :meth:`device_ms` sums the launches' event times; :meth:`check_rows`
     holds every sample against the plain version (on the card, one call
     per body and exponent width: the 2,048-bit ladders of the plain
@@ -1931,13 +2150,15 @@ class LaunchRecorder:
             moduli=len(rm.moduli))
 
     def __enter__(self):
+        from repro_torch.kernels import prodtree
         mx, lm, geometry = self.mx, self.lm, self.geometry
         real = self._real = {
             (lm, "mulmod_cuda"): lm.mulmod_cuda,
             (lm, "mulmod_rows_cuda"): lm.mulmod_rows_cuda,
             (mx, "modexp_cuda"): mx.modexp_cuda,
             (mx, "modexp_rows_cuda"): mx.modexp_rows_cuda,
-            (mx, "_launch_fixed"): mx._launch_fixed}
+            (mx, "_launch_fixed"): mx._launch_fixed,
+            (prodtree, "prod_rows_cuda"): prodtree.prod_rows_cuda}
 
         def mulmod_cuda(a, b, dm, tpi=None):
             return self._timed(("mulmod", int(a.shape[0]), dm.L32),
@@ -1977,11 +2198,28 @@ class LaunchRecorder:
                 self._sample_rows(key, rm, base=base, exp=exp, out=out)
             return out
 
+        def prod_rows_cuda(x, table, midx, reduce_impl, corr=None, tpi=None,
+                           groups=None, threads=None):
+            body = geometry.body_name("prod_rows", reduce_impl)
+            shape = (body, int(x.shape[0]), table.L32)
+            out = self._timed(shape, lambda: real[(prodtree,
+                                                   "prod_rows_cuda")](
+                x, table, midx, reduce_impl, corr, tpi, groups, threads))
+            key = shape + (int(x.shape[1]),)
+            if key not in self.samples and shape[1]:
+                self.samples[key] = dict(
+                    _tree_sample(x, table, midx, corr, out, _sample(shape[1]),
+                                 reduce_impl, device=x.device),
+                    moduli=int(table.mw.shape[0]))
+            return out
+
         for (mod, attr), fn in (((lm, "mulmod_cuda"), mulmod_cuda),
                                 ((lm, "mulmod_rows_cuda"), mulmod_rows_cuda),
                                 ((mx, "modexp_cuda"), modexp_cuda),
                                 ((mx, "modexp_rows_cuda"), modexp_rows_cuda),
-                                ((mx, "_launch_fixed"), launch_fixed)):
+                                ((mx, "_launch_fixed"), launch_fixed),
+                                ((prodtree, "prod_rows_cuda"),
+                                 prod_rows_cuda)):
             setattr(mod, attr, fn)
         return self
 
@@ -2019,7 +2257,12 @@ class LaunchRecorder:
             s = [self.samples[k] for k in keys]
             dm = cat_moduli([x["dm"] for x in s])
             t0 = time.perf_counter()
-            if body == "mulmod_rows":
+            if body.startswith("prod_rows"):     # le16: factors a row
+                out = _tree_plain(dict(
+                    s[0], x=torch.cat([x["x"] for x in s]), dm=dm,
+                    corr=None if s[0]["corr"] is None
+                    else torch.cat([x["corr"] for x in s])))
+            elif body == "mulmod_rows":
                 out = lm.mulmod_plain(torch.cat([x["a"] for x in s]),
                                       torch.cat([x["b"] for x in s]), dm)
             else:
@@ -2028,7 +2271,8 @@ class LaunchRecorder:
                                       torch.cat([x["exp"] for x in s]), dm,
                                       method, impl)
             torch.cuda.synchronize()
-            secs.append((body, k, 16 * le16, time.perf_counter() - t0))
+            secs.append((body, k, 0 if body.startswith("prod_rows")
+                         else 16 * le16, time.perf_counter() - t0))
             i = 0
             for k, x in zip(keys, s):
                 n = x["out"].shape[0]
@@ -2045,7 +2289,11 @@ class LaunchRecorder:
             assert err == 0, f"{key}: kernel differs from its plain " \
                 f"version on sample rows (max abs limb error {err})"
             L16 = int(got.shape[1])
-            if body == "mulmod_rows":
+            if body.startswith("prod_rows"):
+                s = self.samples[key]
+                work = word_products("prod_rows", k, factors=le16)
+                moved = B * (le16 + 1) * L16 * 4
+            elif body == "mulmod_rows":
                 work, moved = word_products("mulmod", k), B * 3 * L16 * 4
             else:
                 impl, method = rows_body(body)
@@ -2055,7 +2303,10 @@ class LaunchRecorder:
                 moved = B * (2 * L16 + le16) * 4
             n, ms = timed[(body, B, k)]
             bnd, by = bound_ms(work, B, moved + B * 4)
-            rows.append(dict(body=body, B=B, k=k, exp_bits=16 * le16,
+            tree = body.startswith("prod_rows")
+            rows.append(dict(body=body, B=B, k=k,
+                             exp_bits=0 if tree else 16 * le16,
+                             **({"factors": le16} if tree else {}),
                              moduli=self.samples[key]["moduli"],
                              launches=n, ms=ms, bound_ms=bnd, bound_by=by,
                              sample_rows=int(got.shape[0]),
@@ -3370,6 +3621,8 @@ def main():
         MAIN_PATH_BODIES)
     secs = res.stats["seconds"]
     report_path(wall, secs, checked, launches, shape_launches)
+    check_one_tree("main path", launches, "modexp[montgomery,win4]",
+                   "prod_rows[montgomery]")
 
     log("time split of one main-path round (torch.profiler):")
     split = time_split(protocol, lm, mx, QuantSpec, make_lasso,
@@ -3387,9 +3640,12 @@ def main():
         bres, bwall, blaunches, bshape_launches, bchecked, _ = run_main_path(
             protocol, gold, bi, build, QuantSpec, make_lasso, plain_history,
             BARRETT_ARM_BODIES,
-            absent=[b for b in geometry.BODIES if "montgomery" in b])
+            absent=[b for b in geometry.BODIES if "montgomery" in b
+                    and b not in geometry.TREE_BODIES])
     report_path(bwall, bres.stats["seconds"], bchecked, blaunches,
                 bshape_launches)
+    check_one_tree("Barrett arm", blaunches, "modexp[barrett,win4]",
+                   "prod_rows[montgomery]")
 
     # the protocol surface, after every earlier phase
     log("modexp at this slice's new shapes, timed:")
@@ -3459,7 +3715,17 @@ def main():
     rows_turns, rows_sweep = time_rows_s1(bi, ops, mx, geometry, ptxas, dev)
     log(f"rows at S1's shapes: {time.perf_counter() - t0:.1f} s; sweep "
         + json.dumps(rows_sweep))
-    prod_tree = time_prod_rows(bi, ops, dev)
+    log("the product-tree kernel at S1's, the main path's and the "
+        "runtime's matvecs and on an even modulus, in turns with the tree "
+        "of mulmods it replaced, and its sweep:")
+    t0 = time.perf_counter()
+    prod_tree, tree_sweep = time_prod_rows(bi, ops, geometry, ptxas, dev)
+    log(f"product tree: {time.perf_counter() - t0:.1f} s; sweep "
+        + json.dumps(tree_sweep))
+    for row in prod_tree:                      # the main path's shape
+        if row["what"] == "main":
+            times[row["body"]] = dict(row, shape=(
+                f"R={row['B']} N={row['factors']} k=128, one modulus"))
     serving, serve_launches = {}, {}
     with LaunchRecorder(mx, lm, geometry) as launch_rec:
         log(f"serving S1: ProtocolEngine, {len(SERVE_SEEDS)} gold LASSO "
@@ -3482,6 +3748,11 @@ def main():
         "subprocesses:")
     serving["s3"] = run_serve_clis(calib)
     serving["prod_rows"] = prod_tree
+    s1_matvecs = s1_shapes.get(("modexp_rows[montgomery,win4]",
+                                S1_ROWS_SHAPES[0][1], 128), 0)
+    assert serve_launches["serve_s1"]["prod_rows[montgomery]"] == \
+        s1_matvecs > 0, (serve_launches["serve_s1"], s1_matvecs)
+    log(f"  S1: one product-tree launch per fused matvec ({s1_matvecs})")
     log("serving: " + json.dumps(serving))
 
     # the LM serving stack, after every earlier phase
@@ -3564,6 +3835,18 @@ def main():
             entry.setdefault("shapes", []).extend(
                 dict(r, serve_s1_launches=s1_shapes.get(
                     (body, r["B"], r["k"]), 0)) for r in rows_s1)
+        tree = [r for r in prod_tree if r["body"] == body]
+        if tree:                               # the product tree's shapes
+            entry.setdefault("shapes", []).extend(
+                dict(r, launches=shape_launches.get((body, r["B"], r["k"]),
+                                                    0),
+                     barrett_arm_launches=bshape_launches.get(
+                         (body, r["B"], r["k"]), 0),
+                     rt_gold_launches=rt_shape_launches["rt_gold"].get(
+                         (body, r["B"], r["k"]), 0),
+                     serve_s1_launches=s1_shapes.get(
+                         (body, r["B"], r["k"]), 0))
+                for r in tree)
         rows_new = [r for r in serve_shapes if r["body"] == body]
         if rows_new:                           # the serving path's shapes
             entry.setdefault("shapes", []).extend(

@@ -320,10 +320,11 @@ def matvec_many(bk: BatchKey, Ks, cs_list: Sequence) -> list:
     """Fused homomorphic matvecs: out[b][i] = prod_j cs[b][j]^{Ks[b,i,j]}.
 
     All B*(M, N) exponent blocks flatten into ONE batched CRT ModExp
-    launch per half space, then one shared log-depth mulmod tree reduces
-    the rows mod n^2.  Limb-resident in (every entry a CipherTensor) gives
-    CipherTensor rows out; int sequences keep int-in/int-out.  Negative
-    exponents force the materialized general path.
+    launch per half space, then one product-tree launch
+    (``paillier_vec.mul_tree``) reduces the rows mod n^2.  Limb-resident
+    in (every entry a CipherTensor) gives CipherTensor rows out; int
+    sequences keep int-in/int-out.  Negative exponents force the
+    materialized general path.
     """
     key, vk = bk.key, bk.vk
     Ks = np.asarray(Ks, dtype=object)
@@ -576,7 +577,7 @@ def matvec_rows(items: Sequence, device=None) -> list[torch.Tensor]:
     Each edge's N ciphertexts are broadcast to its M rows on the device
     (as ``runtime.coalesce.c_matvec_many``), so the whole cluster is one
     ``modexp_rows`` launch at n^2 over sum E M N rows, then one shared
-    log-depth ``prod_rows`` tree.
+    ``prod_rows`` product-tree launch.
     """
     shapes = {tuple(np.shape(Ks))[1:] for _, Ks, _ in items}
     if len(shapes) != 1 or any(np.ndim(Ks) != 3 for _, Ks, _ in items):

@@ -200,8 +200,8 @@ def c_mul_const_batch(vk: VecKey, c: torch.Tensor, k: torch.Tensor,
 def c_matvec(vk: VecKey, K: torch.Tensor, c_vec: torch.Tensor,
              exp_limbs: int = 4) -> torch.Tensor:
     """Homomorphic matrix-vector product: out[i] = Π_j c_j^{K[i,j]} mod n^2
-    — one ModExp launch over the flattened (M, N) batch, then a log-depth
-    product tree (the edge's eq.-13 x-hat update)."""
+    — one ModExp launch over the flattened (M, N) batch, then one
+    product-tree launch (the edge's eq.-13 x-hat update)."""
     M, N = K.shape
     L2 = vk.pack_n2.L16
     powed = ops.modexp(
@@ -212,23 +212,12 @@ def c_matvec(vk: VecKey, K: torch.Tensor, c_vec: torch.Tensor,
 
 
 def mul_tree(vk: VecKey, cur: torch.Tensor) -> torch.Tensor:
-    """Log-depth batched ciphertext product over axis 1: (R, N, L) -> (R, L).
+    """Batched ciphertext product over axis 1: (R, N, L) -> (R, L).
 
-    Each round halves N with one batched mulmod launch mod n^2; exact
-    modular arithmetic makes the tree association bit-transparent vs. a
-    sequential fold.
+    One launch of the product-tree kernel mod n^2 (``ops.prod_mod``:
+    Montgomery with one R^N correction, Barrett under
+    ``REPRO_REDUCE_IMPL=barrett``), where the reference runs a log-depth
+    tree of mulmod launches; exact modular arithmetic makes the
+    association bit-transparent.  N = 1 gives ``cur[:, 0]`` as it is.
     """
-    R, n_cur, L2 = cur.shape
-    while n_cur > 1:
-        half = n_cur // 2
-        a = cur[:, :half]
-        b = cur[:, half:2 * half]
-        prod = ops.mulmod(a.reshape(R * half, L2), b.reshape(R * half, L2),
-                          vk.pack_n2).reshape(R, half, L2)
-        if n_cur % 2:
-            prod = torch.cat([prod, cur[:, -1:]], dim=1)
-            n_cur = half + 1
-        else:
-            n_cur = half
-        cur = prod
-    return cur[:, 0]
+    return ops.prod_mod(cur, vk.pack_n2)

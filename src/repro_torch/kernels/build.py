@@ -43,7 +43,7 @@ _GEOM = (_I, _I, _I, _I, _I)
 #: one modulus of a modexp_fixed launch: windows, m, r1 or mu, r2, mp
 _HALF = (_P, _P, _P, _P, _U)
 #: the kernel sources, ``csrc/<name>.cu``: one library each
-SOURCES = ("mulmod", "modexp", "modexp_fixed")
+SOURCES = ("mulmod", "modexp", "modexp_fixed", "prodtree")
 #: launcher name -> (its source, exported C function, argument types); the
 #: ``*_rows`` launchers take per-row moduli (tables and a row index)
 KERNELS = {
@@ -61,6 +61,12 @@ KERNELS = {
     "modexp_fixed": ("modexp_fixed", "modexp_fixed_launch",
                      (_P, _P, _I, _I, _I, _I, *_HALF, *_HALF, _I, _I, *_GEOM,
                       _P)),
+    # the product tree: factors with row and factor strides, the modulus
+    # table (m, R mod m or mu, R^N mod m, mp, row index), width, body;
+    # tpi, words, groups a row, threads, blocks, shared memory
+    "prod_rows": ("prodtree", "prod_rows_launch",
+                  (_P, _L, _L, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I,
+                   _I, _I, _I, _I, _I, _I, _P)),
 }
 
 #: launches per kernel body (``geometry.BODIES``), and per (body, batch,

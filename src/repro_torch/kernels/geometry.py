@@ -16,7 +16,10 @@ per row, the serving path's cross-tenant launches) take the geometry of
 their broadcast counterparts, but the Montgomery ``modexp_rows`` bodies,
 whose group size comes from a sweep at the serving path's n^2.
 The win4 and fixed ladders keep a 16-entry power table per integer in
-dynamic shared memory.
+dynamic shared memory.  The product tree's bodies (``prod_rows[...]``,
+``csrc/prodtree.cu``) fold each row's factors with G groups of threads
+and reduce the groups through shared memory: :func:`tree_geometry`
+sizes them from the rows and the factors a row.
 
 Nothing here touches a device: the CPU tests check every width.
 """
@@ -37,7 +40,11 @@ BODIES = ("mulmod",
           "modexp_fixed[montgomery]", "modexp_fixed[barrett]",
           "mulmod_rows", "modexp_rows[barrett,win4]",
           "modexp_rows[barrett,binary]", "modexp_rows[montgomery,win4]",
-          "modexp_rows[montgomery,binary]")
+          "modexp_rows[montgomery,binary]",
+          "prod_rows[montgomery]", "prod_rows[barrett]")
+#: the product tree's bodies, sized by :func:`tree_geometry`; every other
+#: body by :func:`launch_geometry`
+TREE_BODIES = ("prod_rows[montgomery]", "prod_rows[barrett]")
 
 #: threads per integer of each body, at every width (mulmod: below
 #: MULMOD_FULL_BATCH).  modexp's bodies run 8 but modexp[barrett,win4]
@@ -66,7 +73,10 @@ TPI = {"mulmod": 32,
        "mulmod_rows": 32, "modexp_rows[barrett,win4]": 16,
        "modexp_rows[barrett,binary]": 8,
        "modexp_rows[montgomery,win4]": 16,
-       "modexp_rows[montgomery,binary]": 16}
+       "modexp_rows[montgomery,binary]": 16,
+       # the product tree: TPI 16 was fastest of 8, 16 and 32 at every
+       # shape of its sweep (TREE_GROUPS below)
+       "prod_rows[montgomery]": 16, "prod_rows[barrett]": 16}
 #: From this batch on, mulmod runs MULMOD_FULL_WORDS words per lane (8 or
 #: 16 threads per integer at the main path's widths).  chip_smoke.py's
 #: sweep on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6), device
@@ -86,6 +96,8 @@ MULMOD_FULL_WORDS = 8
 _MODEXP = ((8, 1), (8, 2), (8, 4), (8, 8), (8, 16), (4, 16), (16, 4))
 _MODEXP_FIXED = ((32, 1), (32, 2), (32, 4), (16, 4), (8, 8))
 _MODEXP_ROWS_MONT = ((16, 1), (16, 2), (16, 4), (16, 8), (8, 16), (32, 4))
+_TREE = ((32, 1), (32, 2), (32, 4), (16, 1), (16, 2), (16, 4), (16, 8),
+         (8, 16))
 _MULMOD = ((32, 1), (32, 2), (32, 4), (16, 1), (16, 2), (16, 4), (16, 8),
            (8, 1), (8, 2), (8, 4), (8, 8), (8, 16))
 SHAPES = {
@@ -102,6 +114,8 @@ SHAPES = {
     "modexp_rows[barrett,binary]": ((8, 1), (8, 2), (8, 4), (8, 8), (8, 16)),
     "modexp_rows[montgomery,win4]": _MODEXP_ROWS_MONT,
     "modexp_rows[montgomery,binary]": _MODEXP_ROWS_MONT,
+    "prod_rows[montgomery]": _TREE,
+    "prod_rows[barrett]": _TREE,
 }
 #: threads per block of each kernel
 BLOCK_THREADS = {"modexp": 64, "modexp_fixed": 32, "mulmod": 64,
@@ -109,6 +123,26 @@ BLOCK_THREADS = {"modexp": 64, "modexp_fixed": 32, "mulmod": 64,
 #: the block sizes a sweep times (``launch_geometry(threads=...)``)
 SWEEP_THREADS = (64, 128)
 TABLE_ENTRIES = 16
+#: the product tree: G, the groups that fold one row's factors, is
+#: TREE_GROUPS (never more than the row's factors); a block holds one row,
+#: or several when a row has fewer than TREE_MIN_THREADS threads (two
+#: warps).  chip_smoke.py's sweep on an NVIDIA H100 80GB HBM3 at 700 W,
+#: n^2 (k = 128), 192 factors a row, CUDA-event ms of the Montgomery body
+#: at TPI 16 and G = 4 / 8 / 16 / 32 (one row a block): S1's 2,304 rows
+#: over 4 moduli 3.924 / 3.907 / 4.070 / 6.029, the runtime's 576 rows
+#: 1.446 / 1.211 / 1.211 / 1.674, the main path's 192 rows 0.953 / 0.628
+#: / 0.568 / 0.678; TPI 8 and 32 were slower at every shape, the Barrett
+#: body ranked the same.  G = 16 is the best or within 5 % of it at each.
+#: The other instantiations of _TREE are built for that sweep and for
+#: the card tests at every swept geometry.
+TREE_GROUPS = 16
+TREE_MIN_THREADS = 64
+#: the product tree's largest block by threads per integer: an SM's 64K
+#: registers must hold a block.  ``-Xptxas -v`` on sm_90a (chip_smoke.py,
+#: NVIDIA H100 80GB HBM3): Montgomery / Barrett at k = 128 take 124 / 164
+#: registers at TPI 8, 72 / 98 at TPI 16, 64 / 78 at TPI 32, so 1,024
+#: threads fit none and 512 fit all but TPI 8's Barrett body
+TREE_MAX_THREADS = {8: 256, 16: 512, 32: 512}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,6 +152,8 @@ class Geometry:
     per_block: int    # big integers per block
     blocks: int
     smem: int         # dynamic shared memory per block, bytes
+    groups: int = 1   # product tree: groups per row (per_block / groups
+                      # rows a block)
 
     @property
     def threads(self) -> int:
@@ -129,7 +165,9 @@ def body_name(kernel: str, reduce_impl: str = "montgomery",
     """The body a launch of ``kernel`` runs: ``mulmod``, ``mulmod_rows``,
     ``modexp[<reduce_impl>,<method>]``,
     ``modexp_rows[<reduce_impl>,<method>]`` or
-    ``modexp_fixed[<reduce_impl>]``."""
+    ``modexp_fixed[<reduce_impl>]`` or ``prod_rows[<reduce_impl>]``."""
+    if kernel == "prod_rows":
+        return f"prod_rows[{reduce_impl}]"
     if kernel in ("mulmod", "mulmod_rows"):
         return kernel
     if kernel in ("modexp", "modexp_rows"):
@@ -139,6 +177,21 @@ def body_name(kernel: str, reduce_impl: str = "montgomery",
 
 def _pow2_at_least(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
+
+
+def _words(body: str, k: int, tpi: int) -> int:
+    """Words a lane holds at width k, for an instantiated shape of
+    ``body`` (raises otherwise)."""
+    if not 1 <= k <= MAX_WORDS:
+        raise ValueError(f"modulus of {k} 32-bit words is outside the "
+                         f"kernels' 1..{MAX_WORDS} ({32 * MAX_WORDS} bits)")
+    words = _pow2_at_least(-(-k // tpi))
+    if (tpi, words) not in SHAPES[body]:
+        raise ValueError(
+            f"{body} has no instantiation for {tpi} threads per integer "
+            f"at {k} words ({words} per thread); instantiated: "
+            f"{SHAPES[body]}")
+    return words
 
 
 def group_size(body: str, B: int, k: int) -> int:
@@ -161,9 +214,10 @@ def launch_geometry(body: str, B: int, k: int, tpi: int | None = None,
     ``ValueError`` for a width outside 1..MAX_WORDS, a negative batch, an
     instantiation that does not exist, or a block that would exceed 1,024
     threads or 227 KB of shared memory."""
-    if body not in BODIES:
+    if body not in BODIES or body in TREE_BODIES:
         raise ValueError(f"unknown kernel body {body!r}; expected one of "
-                         f"{BODIES}")
+                         f"{BODIES[:-len(TREE_BODIES)]} (the product "
+                         f"tree's: tree_geometry)")
     if not 1 <= k <= MAX_WORDS:
         raise ValueError(f"modulus of {k} 32-bit words is outside the "
                          f"kernels' 1..{MAX_WORDS} ({32 * MAX_WORDS} bits)")
@@ -171,12 +225,7 @@ def launch_geometry(body: str, B: int, k: int, tpi: int | None = None,
         raise ValueError(f"negative batch {B}")
     kernel = body.split("[")[0]
     tpi = group_size(body, B, k) if tpi is None else tpi
-    words = _pow2_at_least(-(-k // tpi))
-    if (tpi, words) not in SHAPES[body]:
-        raise ValueError(
-            f"{body} has no instantiation for {tpi} threads per integer "
-            f"at {k} words ({words} per thread); instantiated: "
-            f"{SHAPES[body]}")
+    words = _words(body, k, tpi)
     if threads is None:
         threads = BLOCK_THREADS[kernel]
     table = kernel == "modexp_fixed" or body.endswith(",win4]")
@@ -193,3 +242,52 @@ def launch_geometry(body: str, B: int, k: int, tpi: int | None = None,
     per_block = threads // tpi
     return Geometry(tpi=tpi, words=words, per_block=per_block,
                     blocks=-(-B // per_block), smem=smem)
+
+
+def tree_groups(N: int, tpi: int) -> int:
+    """The default G of a product tree over rows of N factors:
+    TREE_GROUPS, but at most N (the largest power of two not above it)
+    and at most a block's threads (TREE_MAX_THREADS)."""
+    return max(1, min(TREE_GROUPS, 1 << (max(N, 1).bit_length() - 1),
+                      TREE_MAX_THREADS[tpi] // tpi))
+
+
+def tree_geometry(body: str, R: int, N: int, k: int, tpi: int | None = None,
+                  groups: int | None = None,
+                  threads: int | None = None) -> Geometry:
+    """Geometry of one product-tree launch of ``body`` (one of
+    :data:`TREE_BODIES`) over R rows of N factors of k words: ``groups``
+    (G, a power of two) groups of ``tpi`` threads fold a row's factors,
+    ``threads`` a block (a multiple of tpi G: whole rows a block; default
+    tpi G, at least TREE_MIN_THREADS).  ``per_block`` counts the block's
+    groups, ``blocks`` covers the rows; the tree's shared memory is one
+    row of words a group when G > 1.  ``tpi``, ``groups`` and ``threads``
+    other than the defaults time the sweep's candidates.  Raises
+    ``ValueError`` for another body, a width outside 1..MAX_WORDS, a
+    negative R, N < 1, a shape that is not instantiated or a block that
+    Hopper refuses."""
+    if body not in TREE_BODIES:
+        raise ValueError(f"unknown product-tree body {body!r}; expected one "
+                         f"of {TREE_BODIES}")
+    if R < 0 or N < 1:
+        raise ValueError(f"{body}: {R} rows of {N} factors")
+    tpi = TPI[body] if tpi is None else tpi
+    words = _words(body, k, tpi)      # tpi is instantiated: 8, 16 or 32
+    G = tree_groups(N, tpi) if groups is None else groups
+    if G < 1 or G & (G - 1):
+        raise ValueError(f"{body}: {G} groups a row is not a power of two")
+    row_threads = tpi * G
+    if threads is None:
+        threads = max(row_threads, TREE_MIN_THREADS)
+    cap = TREE_MAX_THREADS[tpi]
+    if threads > cap or threads % 32 or threads % row_threads:
+        raise ValueError(f"{body}: {threads} threads per block do not hold "
+                         f"whole warps and whole rows of {G} groups of "
+                         f"{tpi} threads within {cap}")
+    rows = threads // row_threads
+    smem = threads * words * 4 if G > 1 else 0
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"{body} at {k} words: {smem} bytes of shared "
+                         f"memory per block exceed {MAX_SMEM_BYTES}")
+    return Geometry(tpi=tpi, words=words, per_block=threads // tpi,
+                    blocks=-(-R // rows), smem=smem, groups=G)

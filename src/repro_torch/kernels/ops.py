@@ -18,8 +18,12 @@ The rows layer (:func:`rows_modulus`, :func:`mulmod_rows`,
 :func:`modexp_rows`, :func:`prod_rows`) takes one modulus per row, each a
 tenant's n^2 in the serving path's cross-tenant launches; ``modexp_rows``
 follows ``REPRO_REDUCE_IMPL`` as ``modexp`` does (Montgomery by default,
-Barrett for a table with an even modulus), ``mulmod_rows`` and
-``prod_rows`` are Barrett, as standalone ``mulmod`` is.  Its public
+Barrett for a table with an even modulus), ``mulmod_rows`` is Barrett,
+as standalone ``mulmod`` is.  :func:`prod_mod` is ``prod_rows`` under one
+modulus (the matvec's product tree, ``paillier_vec.mul_tree``): both run
+one ``csrc/prodtree.cu`` launch a product (``kernels/prodtree.py``),
+Montgomery when every modulus is odd and Barrett otherwise, whatever
+``REPRO_REDUCE_IMPL`` says (the reference's tree never reads it).  Its public
 layout is the port's (B, L16) radix-2^16 int32 on the device, not the
 reference's radix-256 numpy rows; the reference pads batches and
 exponent widths to powers of two only to bound JAX retraces, and the
@@ -47,6 +51,7 @@ from .limb_mulmod import mulmod_limbs, mulmod_rows_limbs
 from .modexp import (METHODS, REDUCE_IMPLS, modexp_fixed_limbs,
                      modexp_fixed_pair_limbs, modexp_limbs,
                      modexp_rows_limbs)
+from .prodtree import prod_rows_limbs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -379,23 +384,62 @@ def modexp_rows(base: torch.Tensor, exp: torch.Tensor, rm: cm.RowsModulus,
     return modexp_rows_limbs(base, _same_device(exp, base), rm, method, impl)
 
 
+@functools.lru_cache(maxsize=64)
+def _tree_correction(moduli: tuple, L32: int, n: int,
+                     device: str) -> torch.Tensor:
+    """R^n mod m for each modulus, R = 2^{32 L32}: (T, 2 L32) int32 limbs
+    on ``device``.  The Montgomery product tree over n factors ends at
+    prod * R^{1-n}; one more product by this leaves prod
+    (``kernels/prodtree.py``).  One small modexp a modulus, once per
+    (table, n, device)."""
+    R = 1 << (32 * L32)
+    return torch.as_tensor(np.stack([bi.from_int(pow(R, n, m), 2 * L32)
+                                     for m in moduli]), device=device)
+
+
+def _prod(x: torch.Tensor, moduli: tuple, table: cm.DeviceModulus,
+          midx: torch.Tensor | None, odd: bool) -> torch.Tensor:
+    """The product over axis 1 of a checked (R, N >= 2, L16) tensor, one
+    launch (the plain version on the CPU): Montgomery when every modulus
+    is ``odd``, else Barrett."""
+    impl = "montgomery" if odd else "barrett"
+    if x.shape[0] == 0:
+        return torch.zeros((0, table.L16), dtype=torch.int32,
+                           device=x.device)
+    corr = _tree_correction(moduli, table.L32, x.shape[1], str(x.device)) \
+        if impl == "montgomery" else None
+    return prod_rows_limbs(x, table, midx, impl, corr)
+
+
+def _tree_operand(x, L16: int, name: str) -> torch.Tensor:
+    if not isinstance(x, torch.Tensor) or x.ndim != 3 or x.shape[1] < 1 \
+            or x.shape[2] > L16:
+        raise ValueError(f"{name}: expected an (R, N >= 1, <={L16}) limb "
+                         f"tensor, got {getattr(x, 'shape', type(x))}")
+    return x
+
+
 def prod_rows(x: torch.Tensor, rm: cm.RowsModulus) -> torch.Tensor:
-    """Row-wise modular product over axis 1: (R, N, L16) -> (R, L16), row
-    r mod its modulus.  A log-depth tree of :func:`mulmod_rows` launches
-    (element j times element j + N/2), the row index repeated for each
-    level's rows; exact ring products make the order immaterial."""
-    R, n, L = x.shape
-    if R != rm.B or n < 1:
-        raise ValueError(f"prod_rows: ({R}, {n}, {L}) for {rm.B} moduli")
-    cur = x
-    while n > 1:
-        h = n // 2
-        prod = mulmod_rows(cur[:, :h].reshape(R * h, L),
-                           cur[:, h:2 * h].reshape(R * h, L),
-                           rm.repeat(h)).reshape(R, h, L)
-        if n % 2:
-            cur = torch.cat([prod, cur[:, n - 1:n]], dim=1)
-            n = h + 1
-        else:
-            cur, n = prod, h
-    return cur[:, 0]
+    """Row-wise modular product over axis 1: (R, N, <=L16) -> (R, L16),
+    row r mod its modulus; N = 1 gives ``x[:, 0]`` as it is.  One launch
+    of the product-tree kernel, Montgomery per row, or Barrett for a
+    table with an even modulus; exact ring products make the order
+    immaterial."""
+    x = _tree_operand(x, rm.table.L16, "prod_rows")
+    R, n, _ = x.shape
+    if R != rm.B:
+        raise ValueError(f"prod_rows: ({R}, {n}, ...) for {rm.B} moduli")
+    _same_device(x, rm.midx)
+    if n == 1:
+        return x[:, 0]
+    return _prod(x, rm.moduli, rm.table, rm.midx, rm.montgomery)
+
+
+def prod_mod(x: torch.Tensor, pack: ModulusPack) -> torch.Tensor:
+    """:func:`prod_rows` under the one modulus of ``pack``: (R, N, <=L16)
+    -> (R, L16), one launch on the pack's material as a one-row table."""
+    x = _tree_operand(x, pack.L16, "prod_mod")
+    if x.shape[1] == 1:
+        return x[:, 0]
+    table = _rows_table((pack.m_int,), pack.L8, str(x.device))
+    return _prod(x, (pack.m_int,), table, None, pack.mp32 is not None)

@@ -71,10 +71,11 @@ def c_matvec_many(vk, Ks: torch.Tensor, cs: torch.Tensor,
     ``Ks`` (B, M, N) non-negative int64, ``cs`` (B, N, L16(n^2)) limbs;
     the exponents move to the device of ``cs``.  The (B, M, N) exponent
     block becomes a single flattened ModExp launch — the coalesced form
-    of ``paillier_vec.c_matvec`` — followed by one shared log-depth
-    mulmod tree over j.  The broadcast of each edge's vector to its M
-    rows is a copy of B*M*N*L16*4 bytes: at K = 3 edges of Nk = 192 and a
-    2048-bit key (B*M*N = 110,592 rows of 256 limbs) about 113 MB.
+    of ``paillier_vec.c_matvec`` — followed by one product-tree launch
+    over j (``paillier_vec.mul_tree``).  The broadcast of each edge's
+    vector to its M rows is a copy of B*M*N*L16*4 bytes: at K = 3 edges
+    of Nk = 192 and a 2048-bit key (B*M*N = 110,592 rows of 256 limbs)
+    about 113 MB.
     """
     B, M, N = Ks.shape
     L2 = vk.pack_n2.L16

@@ -30,7 +30,11 @@ even one for the Barrett bodies), ragged batches, every group and block
 size the Montgomery bodies' sweep times at n^2, and 2,048-bit exponents
 at n^2; the rows Paillier ops on the card against
 the CPU; and a small ``ProtocolEngine`` run on the card against its
-tenants' solo runs.  The ten reduced language models in float32 give
+tenants' solo runs.  The product-tree kernel (both bodies) is held
+against its plain version and Python ints at k = 8, 32, 64 and 128, N in
+{2, 3, 17, 192}, three moduli a launch (an even one for Barrett) and one
+(``ops.prod_mod``), factors up to 2^{16 L16} - 1, at every (TPI, G,
+block) of its sweep at n^2, and on strided factors.  The ten reduced language models in float32 give
 the same greedy tokens on the card as on the CPU, with logits within
 1e-3.  These tests need an NVIDIA card and skip
 without one; on the card run
@@ -58,7 +62,7 @@ pytestmark = pytest.mark.cuda
 BITS = (24, 200, 1000, 2048)     # 24 and 1000 bits: odd byte lengths
 BATCHES = (1, 5, 130)
 MAIN_PATH_BODIES = ("mulmod", "modexp[montgomery,win4]",
-                    "modexp_fixed[montgomery]")
+                    "modexp_fixed[montgomery]", "prod_rows[montgomery]")
 # cooperative bodies: width k in words -> bits of its random odd modulus
 WIDTH_BITS = {8: 256, 16: 512, 32: 1000, 63: 2000, 64: 2048, 128: 4096}
 ALL_WINDOWS = 0xFEDCBA9876543210          # 4-bit windows 15, 14, ..., 0
@@ -610,6 +614,98 @@ def test_modexp_rows_long_exponents_at_n2(dev, impl, method):
     assert bi.to_ints(out) == [pow(x, e, m)
                                for x, e, m in zip(base, exps, per_row)]
     assert torch.equal(out, mx.modexp_rows_plain(bt, et, rm, method, impl))
+
+
+TREE_WIDTHS = (8, 32, 64, 128)
+#: the sweep's (TPI, G) at n^2, each in blocks of one row and of at least
+#: 128 threads
+TREE_GEOMETRIES = [(tpi, G) for tpi in (8, 16, 32)
+                   for G in (1, 2, 4, 8, 16, 32, 64)
+                   if tpi * G <= geometry.TREE_MAX_THREADS[tpi]]
+
+
+def _tree_case(k: int, R: int, N: int, impl: str, dev, seed: int):
+    """R rows of N full-width factors over _rows_moduli's three moduli
+    (an even one for Barrett), the per-row table, the R^N correction and
+    the products as ints."""
+    per_row, rm = _rows_case(k, R, dev, impl == "montgomery")
+    rng = random.Random(seed)
+    L16 = rm.table.L16
+    xs = [rng.getrandbits(16 * L16) for _ in range(R * N)]
+    xs[0] = (1 << (16 * L16)) - 1
+    x = torch.as_tensor(bi.from_ints(xs, L16), device=dev).reshape(R, N, L16)
+    corr = ops._tree_correction(rm.moduli, rm.table.L32, N, str(x.device)) \
+        if impl == "montgomery" else None
+    want = []
+    for r, m in enumerate(per_row):
+        p = 1
+        for v in xs[r * N:(r + 1) * N]:
+            p = p * v % m
+        want.append(p)
+    return rm, x, corr, want
+
+
+@pytest.mark.parametrize("k", TREE_WIDTHS)
+@pytest.mark.parametrize("N", (2, 3, 17, 192))
+@pytest.mark.parametrize("impl", ("montgomery", "barrett"))
+def test_prod_rows_kernel_matches_plain_and_ints(dev, monkeypatch, k, N,
+                                                impl):
+    """The product-tree kernel over three moduli (one even for Barrett)
+    and over one (``ops.prod_mod``), full-width factors up to
+    2^{16 L16} - 1, against its plain version and ints."""
+    from repro_torch.kernels import prodtree
+    R = 7
+    rm, x, corr, want = _tree_case(k, R, N, impl, dev, k * 7 + N)
+    body = f"prod_rows[{impl}]"
+    before = build.LAUNCHES[body]
+    out = prodtree.prod_rows_cuda(x, rm.table, rm.midx, impl, corr)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[body] == before + 1
+    assert bi.to_ints(out) == want
+    assert torch.equal(out, prodtree.prod_rows_plain(
+        x, rm.table, rm.midx, impl, 4, corr))
+    # the moduli pick the body: an even one takes Barrett, and the knob
+    # leaves an odd one on Montgomery
+    m = min(rm.moduli, key=lambda v: (v % 2 == (impl == "barrett"), v))
+    xs = bi.to_ints(x.reshape(R * N, -1))
+    monkeypatch.setenv("REPRO_REDUCE_IMPL", "barrett")
+    got = bi.to_ints(ops.prod_mod(x, ops.pack_modulus(m)))
+    ones = []
+    for r in range(R):
+        p = 1
+        for v in xs[r * N:(r + 1) * N]:
+            p = p * v % m
+        ones.append(p)
+    assert got == ones
+    assert build.LAUNCHES[body] == before + 2
+
+
+@pytest.mark.parametrize("impl", ("montgomery", "barrett"))
+@pytest.mark.parametrize("tpi, G", TREE_GEOMETRIES)
+def test_prod_rows_every_geometry(dev, impl, tpi, G):
+    """Every group size, groups a row and block size the sweep times, at
+    n^2 (k = 128): 9 rows (the last block partly past R) of 37 factors
+    (not a multiple of G, and fewer than G at the widest)."""
+    from repro_torch.kernels import prodtree
+    rm, x, corr, want = _tree_case(128, 9, 37, impl, dev, tpi * G)
+    cap = geometry.TREE_MAX_THREADS[tpi]
+    for threads in sorted({max(tpi * G, 64), min(cap, max(tpi * G, 128))}):
+        out = prodtree.prod_rows_cuda(x, rm.table, rm.midx, impl, corr,
+                                      tpi=tpi, groups=G, threads=threads)
+        torch.cuda.synchronize()
+        assert bi.to_ints(out) == want, (threads,)
+
+
+def test_prod_rows_strided_factors_and_one_factor(dev):
+    """Factors read through row and factor strides (a slice of a wider
+    tensor) give the contiguous result; N = 1 launches nothing."""
+    rm, x, corr, want = _tree_case(64, 5, 6, "montgomery", dev, 3)
+    wide = torch.zeros((5, 12, x.shape[2]), dtype=torch.int32, device=dev)
+    wide[:, ::2] = x
+    before = build.LAUNCHES["prod_rows[montgomery]"]
+    assert bi.to_ints(ops.prod_rows(wide[:, ::2], rm)) == want
+    assert torch.equal(ops.prod_rows(x[:, :1], rm), x[:, 0])
+    assert build.LAUNCHES["prod_rows[montgomery]"] == before + 1
 
 
 def test_rows_paillier_ops_on_card_equal_cpu(dev):

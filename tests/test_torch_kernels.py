@@ -348,7 +348,13 @@ def test_modexp_fixed_pair_equals_two_singles(Bp, Bq):
 MAIN_BATCHES = (0, 1, 192, 384, 18_432, 36_864)
 
 
-@pytest.mark.parametrize("body", geometry.BODIES)
+# the bodies launch_geometry sizes (the product tree's: tree_geometry,
+# tests/test_torch_prod_tree.py)
+ELEMENT_BODIES = tuple(b for b in geometry.BODIES
+                       if b not in geometry.TREE_BODIES)
+
+
+@pytest.mark.parametrize("body", ELEMENT_BODIES)
 def test_launch_geometry_covers_every_width(body):
     """For every width 1..MAX_WORDS and main-path batch: an instantiated
     shape that holds k words, whole warps, blocks that cover B exactly
@@ -417,7 +423,7 @@ def test_launch_geometry_main_path_shapes(body, B, k, want):
 
 
 @pytest.mark.parametrize("body, tpi", [
-    (body, tpi) for body in geometry.BODIES
+    (body, tpi) for body in ELEMENT_BODIES
     for tpi in sorted({t for t, _ in geometry.SHAPES[body]})])
 def test_launch_geometry_group_size_candidates(body, tpi):
     """Every group size timed against the chosen one holds 64 words (the
@@ -506,8 +512,9 @@ def test_body_names_are_the_launch_counter_keys():
     for impl in ("montgomery", "barrett"):  # the per-row bodies
         for method in ("win4", "binary"):
             names.add(geometry.body_name("modexp_rows", impl, method))
+        names.add(geometry.body_name("prod_rows", impl))  # the tree
     assert names == set(geometry.BODIES)
-    # every launcher is exported by one of the three sources
+    # every launcher is exported by one of the sources
     assert {src for src, _, _ in build.KERNELS.values()} == \
         set(build.SOURCES)
 
