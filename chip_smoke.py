@@ -88,9 +88,15 @@ package, and:
     launches, beside its bound;
 11. runs the serving path (``repro_torch.serve.protocol_engine``) at the
     main path's key and cut, after timing each per-row-modulus body
-    (``mulmod_rows``, ``modexp_rows`` with both reductions and both
-    ladders) at n^2 over four moduli beside its plain version on the same
-    inputs, and the Barrett and Montgomery win4 ``modexp_rows`` bodies in
+    (``mulmod_rows`` and ``modexp_rows``, each with both reductions, and
+    both ladders) at n^2 over four moduli beside its plain version on the
+    same inputs; both ``mulmod_rows`` bodies in turns at S1's and S2's
+    shapes (B = 576 ... 4,608 at k = 64 and 128, device time with the
+    host's enqueue hidden beside each call's wall time on the host), with
+    the sweep of their group and block sizes and, at the same shapes and
+    the main path's, the Montgomery body on a one-modulus table in turns
+    with ``mulmod``; and the Barrett and Montgomery win4 ``modexp_rows``
+    bodies in
     turns at S1's three shapes (the fused matvec, a round's encryptions
     and decryptions), each held against its plain version and Python
     ints on sample rows, with the sweep of the Montgomery bodies' group
@@ -121,7 +127,12 @@ package, and:
     ``mulmod`` launches it replaced (rebuilt here from the public ops),
     held against its plain version (on the card) and Python ints on sample
     rows and against the old tree on every row, with the sweep of its
-    group size, groups a row and block size;
+    group size, groups a row and block size.  S4 runs S1's fused
+    ``enc_rows``, ``add_rows``, ``matvec_rows`` and ``dec_rows`` (four
+    2,048-bit tenants, S1's shapes) under
+    ``torch.cuda.set_sync_debug_mode("error")`` up to the first read-back
+    of a result (``bigint.to_ints``), so any wait for the device before it
+    fails the run, then decrypts every result against Python ints;
 12. runs the LM serving stack (``repro_torch.models``, ``serve.engine``,
     ``launch.serve``; plain PyTorch, bfloat16 matmuls on a weight copy
     the engine casts once): L1, Yi-9B at its full configuration (48
@@ -147,9 +158,9 @@ package, and:
     1,024 from ``TokenPipeline`` (finite losses, the last below the
     first), with its step time, tokens/s, peak memory, the step's bound
     and one more step split by CUDA events (loss and backward, AdamW); T2, ``python -m repro_torch.launch.train --arch xlstm_125m``
-    (full configuration) for 12 steps with a checkpoint every 4 (the
-    loss falls), then, with step 12's checkpoint removed, ``--resume``
-    from step 8: the pipeline cursor continues, the first resumed loss
+    (full configuration) for 8 steps with a checkpoint every 4 (the
+    loss falls), then, with step 8's checkpoint removed, ``--resume``
+    from step 4: the pipeline cursor continues, the first resumed loss
     equals the uninterrupted run's and the others lie within 1e-2; T3,
     each reduced config in float32 on the card against the CPU from the
     same weights: loss and grad norm within 1e-4 relative, each gradient
@@ -172,8 +183,9 @@ package, and:
     D3, ``python -m repro_torch.launch.dryrun --arch yi_9b`` (four
     shapes on the fake 16 x 16 mesh, ``long_500k`` skipped) and
     ``--arch qwen2_moe_a27b --shape train_4k`` as two subprocesses run
-    side by side: every cell ok or skipped, each cell's peak per card
-    beside the H100's 80 GB, its bottleneck and its three terms;
+    side by side, on the host beside step 15's card work: every cell ok
+    or skipped, each cell's peak per card beside the H100's 80 GB, its
+    bottleneck and its three terms;
 15. runs the port's entry points and the batch split: E, the six
     examples (``repro_torch.examples``: quickstart, edge_network_sim,
     workload_zoo, power_grid_reconstruction, serve_batched,
@@ -249,7 +261,8 @@ BODY_SOURCES = {
                               "src/repro/kernels/modexp.py:69"),
     # the serving path's per-row-modulus bodies; the reference runs them
     # as jitted jnp, not Pallas
-    "mulmod_rows": ("mulmod.cu", "src/repro/kernels/ops.py:409"),
+    "mulmod_rows[montgomery]": ("mulmod.cu", "src/repro/kernels/ops.py:409"),
+    "mulmod_rows[barrett]": ("mulmod.cu", "src/repro/kernels/ops.py:409"),
     "modexp_rows[barrett,win4]": ("modexp.cu",
                                   "src/repro/kernels/ops.py:417"),
     "modexp_rows[barrett,binary]": ("modexp.cu",
@@ -356,6 +369,7 @@ def build_kernels(build):
     for template, bodies in (("modexp_kernel", both),
                              ("modexp_fixed_kernel", (",true>", ",false>")),
                              ("modexp_rows_kernel", both),
+                             ("mulmod_rows_kernel", (",true>", ",false>")),
                              ("prod_rows_kernel", (",true>", ",false>"))):
         for tail in bodies:
             assert any(n.startswith(template + "<") and n.endswith(tail)
@@ -1685,11 +1699,12 @@ def run_edge_sim(calib):
 
 SERVE_PATHS = ("serve_s1", "serve_s2")
 #: the per-row-modulus bodies S1 launches (the binary ladder runs only
-#: under REPRO_MODEXP_METHOD=binary, Barrett under REPRO_REDUCE_IMPL=barrett
-#: or for an even modulus)
-SERVE_BODIES = ("mulmod_rows", "modexp_rows[montgomery,win4]",
+#: under REPRO_MODEXP_METHOD=binary, the Barrett modexp_rows bodies under
+#: REPRO_REDUCE_IMPL=barrett or for an even modulus, the other Barrett
+#: bodies for an even modulus only)
+SERVE_BODIES = ("mulmod_rows[montgomery]", "modexp_rows[montgomery,win4]",
                 "prod_rows[montgomery]")
-BARRETT_ROWS_BODIES = ("modexp_rows[barrett,win4]",
+BARRETT_ROWS_BODIES = ("mulmod_rows[barrett]", "modexp_rows[barrett,win4]",
                        "modexp_rows[barrett,binary]", "prod_rows[barrett]")
 SERVE_ITERS = 2
 SERVE_SEEDS = (0, 1, 2, 3)
@@ -1713,6 +1728,12 @@ def cat_moduli(dms):
         f.name: torch.cat([getattr(d, f.name) for d in dms])
         for f in dataclasses.fields(dms[0])
         if isinstance(getattr(dms[0], f.name), torch.Tensor)})
+
+
+def mulmod_rows_instantiation(body, g):
+    """The ``mulmod_rows_kernel`` instantiation a launch geometry runs."""
+    return (f"mulmod_rows_kernel<{g.tpi},{g.words},"
+            f"{str(body.endswith('[montgomery]')).lower()}>")
 
 
 def rows_instantiation(body, g):
@@ -1745,11 +1766,12 @@ def time_rows_kernels(bi, ops, lm, mx, geometry, ptxas, dev):
     e, et = rows(B, 4)
     out = {}
     cases = [
-        ("mulmod_rows", "mulmod_rows_kernel",
-         lambda: lm.mulmod_rows_cuda(at, bt, rm),
-         lambda: lm.mulmod_rows_plain(at, bt, rm),
+        (f"mulmod_rows[{impl}]", "mulmod_rows_kernel",
+         functools.partial(lm.mulmod_rows_cuda, at, bt, rm, impl),
+         functools.partial(lm.mulmod_rows_plain, at, bt, rm, impl),
          [x * y % m for x, y, m in zip(a[:4], b[:4], per_row)],
-         word_products("mulmod", 128), B * 3 * L16 * 4, 0, 20)]
+         word_products("mulmod", 128), B * 3 * L16 * 4, 0, 20)
+        for impl in ("montgomery", "barrett")]
     for body in ("modexp_rows[barrett,win4]", "modexp_rows[barrett,binary]",
                  "modexp_rows[montgomery,win4]",
                  "modexp_rows[montgomery,binary]"):
@@ -1770,8 +1792,8 @@ def time_rows_kernels(bi, ops, lm, mx, geometry, ptxas, dev):
         err = compare(bi, name, got, ref, want)
         bnd, by = bound_ms(work, B, nbytes + B * 4)
         g = geometry.launch_geometry(name, B, 128)
-        inst_name = f"{symbol}<{g.tpi},{g.words}>" \
-            if name == "mulmod_rows" else rows_instantiation(name, g)
+        inst_name = mulmod_rows_instantiation(name, g) \
+            if name.startswith("mulmod_rows") else rows_instantiation(name, g)
         regs = ptxas.get(inst_name, {})
         check_spills(inst_name, regs)
         out[name] = dict(shape=f"B={B} k=128 over {ROWS_MODULI} moduli"
@@ -1785,6 +1807,180 @@ def time_rows_kernels(bi, ops, lm, mx, geometry, ptxas, dev):
             f"device, {event_ms:.4f} ms per call (plain {plain_ms:.1f} ms, "
             f"bound {bnd:.4f} ms), equal")
     return out
+
+
+#: S1's and S2's per-row products (a round's sums and the blinding
+#: product of its encryptions): rows at k = 64 (n^2 of a 1,024-bit key)
+#: and 128 (2,048 bits) over four tenants; the main path's ``mulmod``
+#: shapes (an edge's matvec reduced into p^2, the sums) for the
+#: one-modulus comparison
+S1_MULMOD_SHAPES = tuple((B, k) for k in (64, 128)
+                         for B in (576, 1152, 2304, 4608))
+MAIN_MULMOD_SHAPES = ((36864, 64), (192, 64), (192, 128))
+MULMOD_ROWS_BODIES = ("mulmod_rows[barrett]", "mulmod_rows[montgomery]")
+#: the block sizes the mulmod_rows sweep times
+MULMOD_SWEEP_THREADS = (64, 128, 256)
+#: GPU cycles a timed burst waits behind (about 20 ms at 1.98 GHz), so
+#: every call of it is queued before the first runs
+SLEEP_CYCLES = 40_000_000
+
+
+def queued_ms(fn, reps):
+    """Device milliseconds per call of ``fn`` with the host's enqueue
+    hidden (CUDA events around ``reps`` calls queued behind a
+    ``torch.cuda._sleep``), the host's wall milliseconds per call (the
+    wrapper's own time: it must not wait for the device), whether the
+    burst was queued within the sleep, and the result of a warm-up
+    call."""
+    result = fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    ev[1].record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    wall = 1e3 * (time.perf_counter() - t0)
+    ev[2].record()
+    torch.cuda.synchronize()
+    return (ev[1].elapsed_time(ev[2]) / reps, wall / reps,
+            wall < ev[0].elapsed_time(ev[1]), result)
+
+
+def time_mulmod_rows_s1(bi, ops, lm, geometry, ptxas, dev):
+    """Both ``mulmod_rows`` bodies at S1's and S2's shapes
+    (``S1_MULMOD_SHAPES``, four odd moduli, each tenant's rows together,
+    operands up to 2^{32k} - 1) in turns (Barrett, Montgomery, Montgomery,
+    Barrett; ``queued_ms``), equal to each other on every row and to the
+    plain version (card) and Python ints on SAMPLE_ROWS first and last
+    rows; the sweep of both bodies' group and block sizes, each output
+    equal; and the Montgomery body on a one-modulus table in turns with
+    ``mulmod`` at the same shapes and ``MAIN_MULMOD_SHAPES``.  Returns
+    (turn rows, sweep rows, one-modulus rows)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 8)
+    rng = random.Random(SEED + 8)
+    turns, sweep, single = [], [], []
+    for B, k in S1_MULMOD_SHAPES + MAIN_MULMOD_SHAPES:
+        ms = [rng.getrandbits(32 * k) | (1 << (32 * k - 1)) | 1
+              for _ in range(len(SERVE_SEEDS))]
+        T = len(ms)
+        one = ops.rows_modulus([ms[0]] * B, 4 * k, dev)
+        L16 = one.table.L16
+        a, b = (torch.randint(0, 1 << 16, (B, L16), generator=gen,
+                              device=dev, dtype=torch.int32)
+                for _ in range(2))
+        reps = 20
+        bnd, by = bound_ms(word_products("mulmod", k), B,
+                           B * 3 * L16 * 4 + B * 4)
+        sel = _sample(B)
+        sel_t = torch.as_tensor(sel, device=dev)
+        if (B, k) in S1_MULMOD_SHAPES:
+            per_row = [ms[i * T // B] for i in range(B)]
+            rm = ops.rows_modulus(per_row, 4 * k, dev)
+            shape = dict(B=B, k=k, moduli=T, bound_ms=bnd, bound_by=by)
+            want = [x * y % per_row[i] for i, x, y in zip(
+                sel, bi.to_ints(a[sel_t].cpu()), bi.to_ints(b[sel_t].cpu()))]
+            sample = replace(rm, midx=rm.midx[sel_t])
+            times, walls, results = defaultdict(list), defaultdict(list), {}
+            for body in MULMOD_ROWS_BODIES + MULMOD_ROWS_BODIES[::-1]:
+                impl = body[len("mulmod_rows["):-1]
+                t, w, hidden, results[body] = queued_ms(functools.partial(
+                    lm.mulmod_rows_cuda, a, b, rm, impl), reps)
+                assert hidden, f"{body} B={B} k={k}: burst not hidden"
+                times[body].append(t)
+                walls[body].append(w)
+            assert torch.equal(*results.values()), (B, k)
+            for body in MULMOD_ROWS_BODIES:
+                impl = body[len("mulmod_rows["):-1]
+                plain_ms, plain = once_ms(functools.partial(
+                    lm.mulmod_rows_plain, a[sel_t], b[sel_t], sample, impl))
+                err = compare(bi, f"{body} B={B} k={k}",
+                              results[body][sel_t], plain, want)
+                g = geometry.launch_geometry(body, B, k)
+                inst = mulmod_rows_instantiation(body, g)
+                regs = ptxas.get(inst, {})
+                check_spills(inst, regs)
+                row = dict(body=body, **shape, ms=float(np.mean(times[body])),
+                           turns_ms=times[body],
+                           wall_ms=float(np.mean(walls[body])),
+                           plain_ms=plain_ms, plain_rows=len(sel),
+                           max_abs_err=err, tpi=g.tpi, threads=g.threads,
+                           instantiation=inst, **regs)
+                turns.append(row)
+                log(f"  {body} B={B} k={k} over {T} moduli ({inst}, "
+                    f"{g.threads} threads: {regs.get('registers')} "
+                    f"registers, {regs.get('spill_stores')} B spills): "
+                    f"{row['ms']:.4f} ms on the device (turns " + ", ".join(
+                        f"{t:.4f}" for t in times[body]) + f"), "
+                    f"{row['wall_ms']:.4f} ms wall a call on the host, "
+                    f"bound {bnd:.5f} ms; equal to the other body, the "
+                    f"plain version and Python ints")
+            for body in MULMOD_ROWS_BODIES:
+                impl = body[len("mulmod_rows["):-1]
+                best = None
+                for tpi in sorted({t for t, _ in geometry.SHAPES[body]}):
+                    for threads in MULMOD_SWEEP_THREADS:
+                        g = geometry.launch_geometry(body, B, k, tpi,
+                                                     threads)
+                        t, w, _, got = queued_ms(functools.partial(
+                            lm.mulmod_rows_cuda, a, b, rm, impl, tpi=tpi,
+                            threads=threads), 10)
+                        assert torch.equal(got, results[body]), (
+                            body, B, k, tpi, threads)
+                        inst = mulmod_rows_instantiation(body, g)
+                        regs = ptxas.get(inst, {})
+                        check_spills(inst, regs)
+                        smem_int, regs_int = resident_integers(
+                            g, regs.get("registers", 0))
+                        row = dict(body=body, B=B, k=k, tpi=tpi,
+                                   threads=threads, ms=t, wall_ms=w,
+                                   bound_ms=bnd,
+                                   registers=regs.get("registers"),
+                                   resident_by_regs=regs_int,
+                                   default=g == geometry.launch_geometry(
+                                       body, B, k))
+                        sweep.append(row)
+                        best = row if best is None or t < best["ms"] \
+                            else best
+                log(f"  sweep {body} B={B} k={k}: fastest TPI {best['tpi']}"
+                    f" x {best['threads']} threads {best['ms']:.4f} ms; "
+                    "TPI/threads ms: " + ", ".join(
+                        f"{r['tpi']}/{r['threads']} {r['ms']:.4f}"
+                        for r in sweep if r["body"] == body
+                        and (r["B"], r["k"]) == (B, k)))
+            del results
+        # the Montgomery body on one modulus beside mulmod, in turns
+        dm = ops.pack_modulus(ms[0]).on(dev)
+        runs = {"mulmod": functools.partial(lm.mulmod_cuda, a, b, dm),
+                "mulmod_rows[montgomery]": functools.partial(
+                    lm.mulmod_rows_cuda, a, b, one, "montgomery")}
+        times, walls, results = defaultdict(list), defaultdict(list), {}
+        for name in ("mulmod", "mulmod_rows[montgomery]",
+                     "mulmod_rows[montgomery]", "mulmod"):
+            t, w, hidden, results[name] = queued_ms(runs[name], reps)
+            assert hidden, f"{name} B={B} k={k}: burst not hidden"
+            times[name].append(t)
+            walls[name].append(w)
+        assert torch.equal(*results.values()), (B, k)
+        assert bi.to_ints(results["mulmod"][sel_t].cpu()) == [
+            x * y % ms[0] for x, y in zip(bi.to_ints(a[sel_t].cpu()),
+                                          bi.to_ints(b[sel_t].cpu()))]
+        row = dict(B=B, k=k, bound_ms=bnd, bound_by=by, **{
+            f"{name}_{key}": float(np.mean(v[name]))
+            for name in runs for key, v in (("ms", times), ("wall_ms", walls))})
+        single.append(row)
+        log(f"  one modulus B={B} k={k}: mulmod "
+            f"{row['mulmod_ms']:.4f} ms, the Montgomery rows body "
+            f"{row['mulmod_rows[montgomery]_ms']:.4f} ms on the device "
+            f"(turns " + ", ".join(f"{t:.4f}" for t in times["mulmod"])
+            + " / " + ", ".join(
+                f"{t:.4f}" for t in times["mulmod_rows[montgomery]"])
+            + f"); bound {bnd:.5f} ms; equal")
+        del results, a, b
+    torch.cuda.empty_cache()
+    return turns, sweep, single
 
 
 #: S1's per-row ModExp launches at n^2 over its tenants: (what, rows,
@@ -2178,10 +2374,13 @@ class LaunchRecorder:
                                lambda: real[(mx, "_launch_fixed")](
                                    base, B0, windows, dms, mont, tpi))
 
-        def mulmod_rows_cuda(a, b, rm, tpi=None):
-            shape = ("mulmod_rows", int(a.shape[0]), rm.table.L32)
+        def mulmod_rows_cuda(a, b, rm, reduce_impl=None, tpi=None,
+                             threads=None):
+            body = geometry.body_name("mulmod_rows",
+                                      lm.rows_reduction(rm, reduce_impl))
+            shape = (body, int(a.shape[0]), rm.table.L32)
             out = self._timed(shape, lambda: real[(lm, "mulmod_rows_cuda")](
-                a, b, rm, tpi))
+                a, b, rm, reduce_impl, tpi, threads))
             key = shape + (0,)
             if key not in self.samples and shape[1]:
                 self._sample_rows(key, rm, a=a, b=b, out=out)
@@ -2262,9 +2461,11 @@ class LaunchRecorder:
                     s[0], x=torch.cat([x["x"] for x in s]), dm=dm,
                     corr=None if s[0]["corr"] is None
                     else torch.cat([x["corr"] for x in s])))
-            elif body == "mulmod_rows":
-                out = lm.mulmod_plain(torch.cat([x["a"] for x in s]),
-                                      torch.cat([x["b"] for x in s]), dm)
+            elif body.startswith("mulmod_rows"):
+                plain = lm.mulmod_mont_plain \
+                    if body == "mulmod_rows[montgomery]" else lm.mulmod_plain
+                out = plain(torch.cat([x["a"] for x in s]),
+                            torch.cat([x["b"] for x in s]), dm)
             else:
                 impl, method = rows_body(body)
                 out = mx.modexp_plain(torch.cat([x["base"] for x in s]),
@@ -2293,7 +2494,7 @@ class LaunchRecorder:
                 s = self.samples[key]
                 work = word_products("prod_rows", k, factors=le16)
                 moved = B * (le16 + 1) * L16 * 4
-            elif body == "mulmod_rows":
+            elif body.startswith("mulmod_rows"):
                 work, moved = word_products("mulmod", k), B * 3 * L16 * 4
             else:
                 impl, method = rows_body(body)
@@ -2376,7 +2577,13 @@ def run_serve_s1(runner, protocol, QuantSpec, make_lasso, report_core,
     wall = time.perf_counter() - t0
     launches, shapes = dict(build.LAUNCHES), dict(build.SHAPE_LAUNCHES)
     timed = recorder.shape_ms()
+    each = {f"{body} B={B} k={k}": [round(a.elapsed_time(b), 4)
+                                    for a, b in evs]
+            for (body, B, k), evs in sorted(recorder.events.items())
+            if "rows" in body}
     fused_device = recorder.device_ms()
+    log("  S1 rows launches, CUDA-event ms of each (the wrapper's host "
+        "time included where the device waited for it): " + json.dumps(each))
     check_tenants("S1", eng, results, solos, report_core, diff_reports)
     for tid, res in results.items():
         assert res.history.tobytes() == \
@@ -2484,6 +2691,90 @@ def run_serve_s2(runner, protocol, QuantSpec, make_lasso, report_core,
                 **{k: serve[k] for k in ("launches", "rows_launches",
                                          "fused_launches", "fused_ops")}), \
         launches, shapes, timed
+
+
+def run_sync_s4(pb, bi, gold, keys):
+    """S4: S1's fused rows ops over its tenants' ``keys`` at S1's shapes
+    (a round's 2 K Nk encryptions a tenant, their sums, the K Nk x Nk
+    matvec blocks, the decryptions of K Nk) under
+    ``torch.cuda.set_sync_debug_mode("error")`` until the first read-back
+    of a result (``bigint.to_ints`` in ``dec_rows``), which may wait: any
+    earlier wait for the device raises (first shown to raise on a read of
+    a device tensor and on a blocking upload).  Then every result is
+    decrypted and held against Python ints.  Returns a summary."""
+    rng = random.Random(SEED + 9)
+    n_enc, T = 2 * K * NK, len(keys)
+    enc_items = [(k, [rng.getrandbits(32) for _ in range(n_enc)],
+                  [gold.rand_r(k, rng) for _ in range(n_enc)]) for k in keys]
+    Ks = [np.array([[[rng.getrandbits(16) for _ in range(NK)]
+                     for _ in range(NK)] for _ in range(K)], dtype=object)
+          for _ in keys]
+    dev = torch.device(DEVICE)
+
+    def fused():
+        cts = pb.enc_rows(enc_items, device=dev)
+        sums = pb.add_rows([(k, c, c) for k, c in zip(keys, cts)],
+                           device=dev)
+        mv = pb.matvec_rows([(k, Kb, [c[e * NK:(e + 1) * NK]
+                                      for e in range(K)])
+                             for k, Kb, c in zip(keys, Ks, cts)],
+                            device=dev)
+        dec = pb.dec_rows([(k, c[:K * NK]) for k, c in zip(keys, cts)],
+                          device=dev)
+        return cts, sums, mv, dec
+
+    fused()                           # tables and kernels built, warm
+    torch.cuda.synchronize()
+    # the detector sees what the launch path used to do: a read of a
+    # device index and a blocking upload
+    caught = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for probe in (lambda: int(torch.arange(3, device=dev).max()),
+                      lambda: torch.as_tensor(np.arange(3), device=dev)):
+            try:
+                probe()
+            except RuntimeError:
+                caught.append(True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert caught == [True, True], "S4: the sync detector missed a probe"
+    real_to_ints, reads = pb.bi.to_ints, []
+
+    def to_ints(x):                   # the first read-back may wait
+        reads.append(torch.cuda.get_sync_debug_mode())
+        torch.cuda.set_sync_debug_mode(0)
+        return real_to_ints(x)
+
+    t0 = time.perf_counter()
+    pb.bi.to_ints = to_ints
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cts, sums, mv, dec = fused()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        pb.bi.to_ints = real_to_ints
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert reads and reads[0] == 2, reads
+    assert dec == [ms[:K * NK] for _, ms, _ in enc_items], \
+        "S4: decryption differs from the plaintexts"
+    back = pb.dec_rows([(k, s) for k, s in zip(keys, sums)], device=dev)
+    assert back == [[2 * m % k.n for m in ms] for k, ms, _ in enc_items], \
+        "S4: the sums decrypt wrong"
+    back = pb.dec_rows([(k, o.reshape(-1, o.shape[-1]))
+                        for k, o in zip(keys, mv)], device=dev)
+    for (k, ms, _), Kb, got in zip(enc_items, Ks, back):
+        want = [sum(int(Kb[e, i, j]) * ms[e * NK + j] for j in range(NK))
+                % k.n for e in range(K) for i in range(NK)]
+        assert got == want, "S4: the matvec decrypts wrong"
+    out = dict(wall_s=wall, tenants=T, enc_rows=T * n_enc,
+               matvec_rows=T * K * NK * NK, dec_rows=T * K * NK,
+               read_backs=len(reads))
+    log("  S4: enc_rows, add_rows, matvec_rows and dec_rows of S1's shapes "
+        "ran under set_sync_debug_mode('error') up to dec_rows' read-back; "
+        "every result decrypts to Python ints: " + json.dumps(out))
+    return out
 
 
 def run_cli(args, timeout, ok_codes=(0,)):
@@ -2910,7 +3201,7 @@ def run_lm_phase(dev):
 T1_LAYERS, T1_BATCH, T1_SEQ, T1_STEPS, T1_LR = 8, 4, 1024, 6, 3e-6
 #: T2: launch.train on xlstm_125m's full configuration: T2_STEPS steps
 #: with a checkpoint every T2_CKPT_EVERY, then --resume from T2_RESUME_AT
-T2_STEPS, T2_BATCH, T2_SEQ, T2_CKPT_EVERY, T2_RESUME_AT = 12, 8, 256, 4, 8
+T2_STEPS, T2_BATCH, T2_SEQ, T2_CKPT_EVERY, T2_RESUME_AT = 8, 8, 256, 4, 4
 #: T2: a resumed step's loss against the uninterrupted run's (the first
 #: resumed step is a forward from the same weights: equal to the printed
 #: digits; later steps carry the card's atomics' rounding in the
@@ -3342,28 +3633,44 @@ def run_shard_d2(configs, mesh, dryrun, t1):
     return res
 
 
-def run_shard_d3():
-    """D3: ``python -m repro_torch.launch.dryrun`` on the fake 16 x 16
-    mesh, D3_RUNS side by side; every process is stopped on the way
-    out."""
+def start_shard_d3():
+    """Start D3: ``python -m repro_torch.launch.dryrun`` on the fake 16 x
+    16 mesh, D3_RUNS side by side.  They run on meta tensors, on the host
+    alone, so they run beside the examples phase; :func:`run_shard_d3`
+    waits for them and :func:`stop_shard_d3` stops them."""
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     outs = {name: os.path.join(REPO, "build", f"dryrun_{name}.json")
             for name in D3_RUNS}
-    t0 = time.perf_counter()
-    procs = {}
+    started = dict(outs=outs, procs={}, t0=time.perf_counter())
     try:
         for name, args in D3_RUNS.items():
-            procs[name] = subprocess.Popen(
+            started["procs"][name] = subprocess.Popen(
                 [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
                  "--out", outs[name]], stdout=subprocess.PIPE,
                 stderr=subprocess.PIPE, text=True, env=env, cwd=REPO)
+    except BaseException:
+        stop_shard_d3(started)
+        raise
+    return started
+
+
+def stop_shard_d3(started):
+    """Stop every D3 process still running."""
+    for p in started["procs"].values():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def run_shard_d3(started):
+    """D3: wait for the dry-runs :func:`start_shard_d3` started (every
+    process is stopped on the way out) and check their cells."""
+    procs, outs, t0 = started["procs"], started["outs"], started["t0"]
+    try:
         done = {name: p.communicate(timeout=D3_TIMEOUT)
                 for name, p in procs.items()}
     finally:
-        for p in procs.values():
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+        stop_shard_d3(started)
     secs = time.perf_counter() - t0
     cells = {}
     for name, p in procs.items():
@@ -3399,7 +3706,8 @@ def run_shard_d3():
             f"{c['t_compute']:.4g} s, memory {c['t_memory']:.4g} s, "
             f"collective {c['t_collective']:.4g} s; collectives "
             f"{c['collectives']}; run {c['run_s']} s")
-    log(f"  two dry-run subprocesses side by side: {secs:.1f} s")
+    log(f"  two dry-run subprocesses side by side, beside the examples: "
+        f"{secs:.1f} s")
     return res
 
 
@@ -3418,9 +3726,6 @@ def run_shard_phase(dev, t1, snapshot):
                             mesh, L, t1, snapshot, dev)
     log("shard D2: the dry-run's accounting of T1's step against T1:")
     sh["d2"] = run_shard_d2(configs, mesh, dryrun, t1)
-    log("shard D3: python -m repro_torch.launch.dryrun --arch yi_9b, and "
-        "--arch qwen2_moe_a27b --shape train_4k, on the fake 16 x 16 mesh:")
-    sh["d3"] = run_shard_d3()
     sh["phase_s"] = time.perf_counter() - t0
     log(f"  shard phase: {sh['phase_s']:.1f} s")
     return sh
@@ -3709,6 +4014,15 @@ def main():
     # the serving path, after every earlier phase
     log("per-row-modulus kernels vs plain versions at n^2, timed:")
     times.update(time_rows_kernels(bi, ops, lm, mx, geometry, ptxas, dev))
+    log("mulmod_rows at S1's and S2's shapes, both bodies in turns, their "
+        "group and block sizes, and the Montgomery body on one modulus "
+        "beside mulmod:")
+    t0 = time.perf_counter()
+    mulmod_turns, mulmod_sweep, mulmod_single = time_mulmod_rows_s1(
+        bi, ops, lm, geometry, ptxas, dev)
+    log(f"mulmod_rows at S1's shapes: {time.perf_counter() - t0:.1f} s; "
+        f"sweep " + json.dumps(mulmod_sweep) + "; one modulus "
+        + json.dumps(mulmod_single))
     log("per-row ModExp at S1's shapes, Barrett and Montgomery in turns, "
         "and the Montgomery bodies' group and block sizes:")
     t0 = time.perf_counter()
@@ -3744,6 +4058,12 @@ def main():
     serve_shapes = launch_rec.check_rows({**s2_timed, **s1_timed})
     log("rows launch shapes of S1 and S2, each equal to its plain version "
         "on sample rows: " + json.dumps(serve_shapes))
+    log("serving S4: S1's fused rows ops under "
+        "torch.cuda.set_sync_debug_mode('error'):")
+    t0 = time.perf_counter()
+    serving["s4"] = run_sync_s4(pb, bi, gold, [solos[f"t{s}"][1].key
+                                              for s in SERVE_SEEDS])
+    log(f"  S4: {time.perf_counter() - t0:.1f} s")
     log("serving S3: serve_sim, obs.report and obs.sentinel as "
         "subprocesses:")
     serving["s3"] = run_serve_clis(calib)
@@ -3766,11 +4086,22 @@ def main():
     # the 2-D sharding and the dry-run, after every earlier phase
     shard = run_shard_phase(dev, train["t1"], t1_snapshot)
     del t1_snapshot
-    log("shard: " + json.dumps(shard))
 
-    # the examples and the batch split, after every earlier phase
-    port = run_port_phase(key, build, pb, protocol, dispatch)
+    # the examples and the batch split, after every earlier phase, with
+    # D3's dry-runs (host work only) beside them
+    log("shard D3: python -m repro_torch.launch.dryrun --arch yi_9b, and "
+        "--arch qwen2_moe_a27b --shape train_4k, on the fake 16 x 16 mesh, "
+        "started beside the examples:")
+    d3 = start_shard_d3()
+    try:
+        port = run_port_phase(key, build, pb, protocol, dispatch)
+    except BaseException:
+        stop_shard_d3(d3)
+        raise
     log("port: " + json.dumps(port))
+    log("shard D3, waited for:")
+    shard["d3"] = run_shard_d3(d3)
+    log("shard: " + json.dumps(shard))
 
     log(f"script: {time.perf_counter() - t_start:.1f} s")
 
@@ -3830,11 +4161,16 @@ def main():
                 dict(r, **{f"{path}_launches": rt_shape_launches[path].get(
                     (body, r["B"], r["k"]), 0) for path in RUNTIME_PATHS})
                 for r in rt_new)
-        rows_s1 = [r for r in rows_turns if r["body"] == body]
+        rows_s1 = [r for r in rows_turns + mulmod_turns
+                   if r["body"] == body]
         if rows_s1:                            # S1's shapes, in turns
             entry.setdefault("shapes", []).extend(
                 dict(r, serve_s1_launches=s1_shapes.get(
-                    (body, r["B"], r["k"]), 0)) for r in rows_s1)
+                    (body, r["B"], r["k"]), 0),
+                    serve_s2_launches=s2_shapes.get(
+                        (body, r["B"], r["k"]), 0)) for r in rows_s1)
+        if body == "mulmod_rows[montgomery]":  # beside mulmod, one modulus
+            entry["one_modulus"] = mulmod_single
         tree = [r for r in prod_tree if r["body"] == body]
         if tree:                               # the product tree's shapes
             entry.setdefault("shapes", []).extend(

@@ -95,6 +95,19 @@ def _host(limbs) -> np.ndarray:
     return np.asarray(limbs)
 
 
+def to_device(arr, device) -> torch.Tensor:
+    """A host array (numpy, or a list of ints) as a tensor on ``device``,
+    without waiting for a CUDA device: through pinned memory and an
+    asynchronous copy on the current stream (the caching host allocator
+    keeps the pinned block until the copy has run), where
+    ``torch.as_tensor(arr, device=...)`` would wait for the stream to
+    drain.  The way back is :func:`to_ints`."""
+    t = torch.as_tensor(np.ascontiguousarray(arr))
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def barrett_mu(m: int, n_limbs: int) -> np.ndarray:
     """Precompute ``mu = floor(B^{2L} / m)`` as ``n_limbs + 1`` limbs."""
     mu = (1 << (LIMB_BITS * 2 * n_limbs)) // m

@@ -437,7 +437,9 @@ def warmup(bk: BatchKey, shapes: Sequence) -> dict:
 # Ciphertexts stay limb-resident: tenants' ``CipherTensor.limbs`` of one
 # width concatenate on the device, and the results come back as (rows,
 # L16(n^2)) int32 tensors per tenant; decryption returns plaintext ints,
-# as ``dec_vec`` does.
+# as ``dec_vec`` does.  Nothing before that read-back waits for the
+# device: host operands go up by ``bigint.to_device``, and the launch
+# wrappers check row indices against ranges known on the host.
 #
 # ``items`` below is always one entry per tenant: ``(key, ...operands)``;
 # returns are per-tenant, in the same order.
@@ -466,9 +468,7 @@ def _rows_cluster(items, device, sizes):
     # the device as tensors report it (cuda:<index>), for the checks below
     dev = torch.empty(0, device=resolve_device(device)).device
     base = ops.rows_modulus([item[0].n2 for item in items], L8, dev)
-    tidx = torch.repeat_interleave(
-        torch.arange(len(items), device=dev),
-        torch.as_tensor(sizes, dtype=torch.int64, device=dev))
+    tidx = bi.to_device(np.repeat(np.arange(len(items)), sizes), dev)
     return dev, base, base.table.L16, tidx
 
 
@@ -478,8 +478,7 @@ def _rows_limbs(x, L16: int, dev: torch.device) -> torch.Tensor:
     if isinstance(x, CipherTensor):
         x = x.limbs
     if not isinstance(x, torch.Tensor):
-        x = torch.as_tensor(bi.from_ints([int(v) for v in x], L16),
-                            device=dev)
+        x = bi.to_device(bi.from_ints([int(v) for v in x], L16), dev)
     if x.device != dev or x.ndim != 2 or x.shape[1] > L16:
         raise ValueError(f"ciphertext rows {tuple(x.shape)} on {x.device} "
                          f"do not fit ({L16}) limbs on {dev}")
@@ -489,8 +488,7 @@ def _rows_limbs(x, L16: int, dev: torch.device) -> torch.Tensor:
 def _key_exps(exps: list[int], tidx: torch.Tensor) -> torch.Tensor:
     """One exponent per tenant, broadcast to its rows: (B, Le16) limbs."""
     le = max(1, max(bi.n_limbs_for(e) for e in exps))
-    table = torch.as_tensor(bi.from_ints(exps, le), device=tidx.device)
-    return table[tidx]
+    return bi.to_device(bi.from_ints(exps, le), tidx.device)[tidx]
 
 
 def enc_rows(items: Sequence, device=None) -> list[torch.Tensor]:
@@ -556,12 +554,12 @@ def _matvec_exps(blocks: list, dev: torch.device) -> torch.Tensor:
             raise ValueError("matvec_rows requires non-negative exponents")
         top = int(k64.max()) if k64.size else 0
         le = max(1, -(-top.bit_length() // bi.LIMB_BITS))
-        return pv.int64_to_limbs(torch.as_tensor(k64, device=dev), le)
+        return pv.int64_to_limbs(bi.to_device(k64, dev), le)
     ints = [int(v) for v in flat]
     if min(ints) < 0:
         raise ValueError("matvec_rows requires non-negative exponents")
     le = max(bi.n_limbs_for(v) for v in ints)
-    return torch.as_tensor(bi.from_ints(ints, le), device=dev)
+    return bi.to_device(bi.from_ints(ints, le), dev)
 
 
 def matvec_rows(items: Sequence, device=None) -> list[torch.Tensor]:

@@ -49,9 +49,11 @@ SOURCES = ("mulmod", "modexp", "modexp_fixed", "prodtree")
 KERNELS = {
     "mulmod": ("mulmod", "mulmod_launch",
                (_P, _L, _P, _L, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P)),
+    # the per-row product: operands, the modulus table (m, mu or R^2 mod
+    # m, mp, row index), width, body; tpi, words, threads, blocks
     "mulmod_rows": ("mulmod", "mulmod_rows_launch",
-                    (_P, _L, _P, _L, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
-                     _I, _P)),
+                    (_P, _L, _P, _L, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I,
+                     _I, _I, _I, _P)),
     "modexp": ("modexp", "modexp_launch",
                (_P, _P, _P, _I, _I, _I, _P, _P, _P, _U, _I, _I, _I, *_GEOM,
                 _P)),
@@ -187,10 +189,13 @@ def require_rows(name: str, x, rows: int, cols: int) -> None:
 def require_index(name: str, rm, rows: int, device) -> "torch.Tensor":
     """The row index of a :class:`~repro_torch.kernels.common.RowsModulus`
     as the ``*_rows`` kernels read it: (rows,) contiguous int32 on
-    ``device``, every entry a row of its table (one synchronizing check),
-    and the table's kernel tensors on the same device.  Raises otherwise:
-    the kernels read table rows at these indices unchecked."""
+    ``device``, every entry a row of its table, and the table's kernel
+    tensors on the same device.  Raises otherwise: the kernels read table
+    rows at these indices unchecked.  The entries are checked against the
+    range the index was built with (``common.index_range``), so nothing
+    here reads the index back or waits for the device."""
     import torch
+    from .common import index_range
     midx, dm = rm.midx, rm.table
     if midx.dtype != torch.int32 or tuple(midx.shape) != (rows,) \
             or midx.device != device or not midx.is_contiguous():
@@ -208,7 +213,11 @@ def require_index(name: str, rm, rows: int, device) -> "torch.Tensor":
             raise ValueError(f"{name}: modulus table of {T} rows does not "
                              f"match its kernel tensor {field} "
                              f"{tuple(x.shape)} on {x.device}")
-    if rows and not 0 <= int(midx.min()) <= int(midx.max()) < T:
+    try:
+        span = index_range(midx)
+    except ValueError as err:
+        raise ValueError(f"{name}: {err}") from None
+    if span is not None and not 0 <= span[0] <= span[1] < T:
         raise ValueError(f"{name}: row index outside the table's {T} rows")
     return midx
 

@@ -20,7 +20,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Sequence
 
+import numpy as np
 import torch
+import torch.utils.weak
 
 from ..core import bigint as bi
 
@@ -145,6 +147,39 @@ def barrett_ladder(ladder, base: torch.Tensor, arg,
                   base_r, arg).to(torch.int32)
 
 
+#: the range of every row index read on the host: the index tensor ->
+#: (its version counter then, least entry, greatest entry), or None for
+#: an empty index.  Entries leave with their tensors.
+_INDEX_RANGES = torch.utils.weak.WeakTensorKeyDictionary()
+
+
+def note_index_range(midx: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Record that ``midx``'s entries lie in [lo, hi], known on the host
+    where it was built; returns ``midx``."""
+    _INDEX_RANGES[midx] = (midx._version, lo, hi)
+    return midx
+
+
+def _noted(midx: torch.Tensor) -> tuple | None:
+    """The noted range of ``midx``, None when there is none or the tensor
+    was written in place since (its version counter moved)."""
+    noted = _INDEX_RANGES.get(midx)
+    return noted if noted is not None and noted[0] == midx._version \
+        else None
+
+
+def index_range(midx: torch.Tensor) -> tuple[int, int] | None:
+    """(least, greatest) entry of a row index whose range was noted, None
+    when it is empty.  Raises ``ValueError`` when no range was noted or
+    the tensor was written in place since: nothing here reads the index,
+    so nothing here waits for the device."""
+    noted = _noted(midx)
+    if noted is None:
+        raise ValueError("row index of no known range (built other than by "
+                         "RowsModulus, or written in place since)")
+    return None if noted[1] > noted[2] else noted[1:]
+
+
 @dataclasses.dataclass(frozen=True)
 class RowsModulus:
     """Per-row moduli of one launch: a table of T moduli of one width on
@@ -158,10 +193,25 @@ class RowsModulus:
     complement), ``minv``, ``r1``, ``r2`` (T, W), all four ``None`` when
     any table modulus is even.  ``midx`` is (B,) int32, every entry in
     [0, T); ``moduli`` are the T moduli as ints.
+
+    The kernels read table rows at ``midx`` unchecked, so its range is
+    known on the host (:func:`index_range`) for the launch wrappers to
+    check without reading the index back: ``ops.rows_modulus`` notes it
+    from the host ints it builds the index from, :meth:`repeat` carries
+    it over, and an index built any other way is read on the host once,
+    here (a device sync when it lies on a card).
     """
     table: DeviceModulus
     midx: torch.Tensor
     moduli: tuple
+
+    def __post_init__(self):
+        idx = self.midx
+        if _noted(idx) is None:
+            host = idx.detach().cpu()
+            lo, hi = (int(host.min()), int(host.max())) if host.numel() \
+                else (0, -1)
+            note_index_range(idx, lo, hi)
 
     @property
     def B(self) -> int:
@@ -174,12 +224,24 @@ class RowsModulus:
 
     def repeat(self, repeats) -> "RowsModulus":
         """Each row ``repeats`` times in a row (an int, or one count per
-        row), as ``torch.repeat_interleave``: the same table."""
-        if not isinstance(repeats, int):
-            repeats = torch.as_tensor(repeats, dtype=torch.int64,
-                                      device=self.midx.device)
-        return RowsModulus(self.table, torch.repeat_interleave(
-            self.midx, repeats), self.moduli)
+        row), as ``torch.repeat_interleave``: the same table.  The counts
+        are host ints, so the output size is known here and the range of
+        the new index is the old one's (rows repeated 0 times only drop
+        entries): nothing waits for the device."""
+        midx = self.midx
+        if isinstance(repeats, int):
+            out = torch.repeat_interleave(midx, repeats)
+        else:
+            counts = [int(c) for c in repeats]
+            if min(counts, default=0) < 0 or len(counts) != self.B:
+                raise ValueError(f"repeat: {len(counts)} non-negative "
+                                 f"counts for {self.B} rows, got {counts}")
+            out = torch.repeat_interleave(
+                midx, bi.to_device(np.asarray(counts, np.int64),
+                                   midx.device), output_size=sum(counts))
+        span = index_range(midx) if out.numel() else None
+        note_index_range(out, *(span or (0, -1)))
+        return RowsModulus(self.table, out, self.moduli)
 
     def per_row(self) -> DeviceModulus:
         """Row i's modulus in row i of every table tensor (B rows): the

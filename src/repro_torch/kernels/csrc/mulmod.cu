@@ -62,33 +62,67 @@ __global__ void mulmod_kernel(const int32_t* __restrict__ a, long long sa,
 }
 
 // Per-row moduli (the serving path's launches, one tenant key per row):
-// element e reduces mod row midx[e] of a table of T moduli (m16: T rows
-// of 2k limbs, mu16: T rows of 2(k+1) limbs).  Replaces the reference's
-// kernels/ops.py::mulmod_rows (jitted common.mulmod2d with per-row m and
-// mu operands; not a Pallas kernel).  A table row read by every element
-// of its tenant stays in L2, where a materialized (B, 2k) modulus array
-// would be a second operand stream as wide as a and b.  Every thread of
-// a group reads the same midx[e]; groups past the batch edge read row 0.
-template <int TPI, int NW>
+// element e reduces mod row t = midx[e] of a table of T moduli.  Replaces
+// the reference's kernels/ops.py::mulmod_rows (jitted common.mulmod2d with
+// per-row m and mu operands; not a Pallas kernel).  A table row read by
+// every element of its tenant stays in L2, where a materialized (B, 2k)
+// modulus array would be a second operand stream as wide as a and b.
+// Every thread of a group reads the same midx[e]; groups past the batch
+// edge read row 0.
+//
+// Bound: per element a k-word product and its reduction, about 2k^2 word
+// products (two REDCs: 2(k^2 + k) more) against 3 * 8k bytes of a, b and
+// out: at n^2 (k = 128) about 130k IMADs per 3 KB, compute-bound.  The
+// serving path's launches are small (B = 576 ... 4,608), so one element's
+// chain of dependent scans sets a launch's time.
+//
+//   Montgomery (every table modulus odd): two cooperative CIOS products
+//   (limbs.cuh mont_mul), 2k scan steps against Barrett's 3k + 2, with
+//   row t's mp = -m^{-1} mod 2^32 (T int32) and R^2 mod m (aux16: T rows
+//   of 2k limbs), R = 2^{32k}, from the table the per-row ModExp reads.
+//   The order is t = REDC(a * (R^2 mod m)) = a R mod m, then REDC(t * b)
+//   = a b mod m.  mont_mul needs its product below R m: a < 2^{16 l16} <=
+//   R and R^2 mod m < m give a (R^2 mod m) < R m, and t < m with b < R
+//   gives t b < R m, for any operands, reduced or not (the rows contract
+//   takes any a, b < 2^{16 l16}).  The other order, REDC(a b) first,
+//   would break that bound once a b >= R m.  Both results are canonical.
+//   Barrett (a table with an even modulus): limbs.cuh barrett_mul with
+//   row t's mu = floor(2^{64k} / m) (aux16: T rows of 2(k+1) limbs), the
+//   body of mulmod_kernel; mp is not read.
+template <int TPI, int NW, bool MONT>
 __global__ void mulmod_rows_kernel(const int32_t* __restrict__ a,
                                    long long sa,
                                    const int32_t* __restrict__ b,
                                    long long sb, int32_t* __restrict__ out,
                                    int B, int l16,
                                    const int32_t* __restrict__ m16,
-                                   const int32_t* __restrict__ mu16,
+                                   const int32_t* __restrict__ aux16,
+                                   const int32_t* __restrict__ mp,
                                    const int32_t* __restrict__ midx, int k) {
   const int e = (int)((blockIdx.x * blockDim.x + threadIdx.x) / TPI);
   const bool live = e < B;
   const size_t t = (size_t)midx[live ? e : 0];
-  mulmod_element<TPI, NW>(a, sa, b, sb, out, e, live, l16,
-                          m16 + t * 2 * k, mu16 + t * 2 * (k + 1), k);
+  if constexpr (MONT) {
+    const long long row = live ? e : 0;
+    u32 m[NW], r2[NW], x[NW], y[NW];
+    group_load<TPI, NW>(m16 + t * 2 * k, 2 * k, k, true, m);
+    group_load<TPI, NW>(aux16 + t * 2 * k, 2 * k, k, true, r2);
+    group_load<TPI, NW>(a + row * sa, l16, k, live, x);
+    group_load<TPI, NW>(b + row * sb, l16, k, live, y);
+    const u32 mpt = (u32)mp[t];
+    mont_mul<TPI, NW>(x, r2, m, mpt, k, x);  // a R mod m
+    mont_mul<TPI, NW>(x, y, m, mpt, k, x);   // a b mod m
+    if (live) group_store<TPI, NW>(x, l16, out + (size_t)e * l16);
+  } else {
+    mulmod_element<TPI, NW>(a, sa, b, sb, out, e, live, l16,
+                            m16 + t * 2 * k, aux16 + t * 2 * (k + 1), k);
+  }
 }
 
 // (threads per element, words per thread) of every instantiation: each
-// timed group size at every width up to 128 words, for both kernels.
-// Mirrors repro_torch.kernels.geometry.SHAPES["mulmod"] and
-// SHAPES["mulmod_rows"].
+// timed group size at every width up to 128 words, for both kernels and
+// both per-row bodies.  Mirrors repro_torch.kernels.geometry.SHAPES
+// ["mulmod"], ["mulmod_rows[montgomery]"] and ["mulmod_rows[barrett]"].
 #define MULMOD_SHAPES(X)                                               \
   X(32, 1) X(32, 2) X(32, 4) X(16, 1) X(16, 2) X(16, 4) X(16, 8) X(8, 1) \
   X(8, 2) X(8, 4) X(8, 8) X(8, 16)
@@ -126,27 +160,36 @@ extern "C" int mulmod_launch(const int32_t* a, long long sa, const int32_t* b,
   return (int)cudaErrorInvalidValue;
 }
 
-// mulmod_launch with per-row moduli: m16 (T rows of 2k limbs) and mu16 (T
-// rows of 2(k+1) limbs) are tables, midx (B int32, each in [0, T)) names
-// each row's modulus.  The caller checks midx.
+// mulmod_launch with per-row moduli: m16 (T rows of 2k limbs) is a
+// table, midx (B int32, each in [0, T)) names each row's modulus; mont
+// picks the body: Montgomery (aux16: R^2 mod m, T rows of 2k limbs; mp: T
+// int32 of -m^{-1} mod 2^32; every modulus odd) or Barrett (aux16: mu, T
+// rows of 2(k+1) limbs; mp unused).  The caller checks midx.
 extern "C" int mulmod_rows_launch(const int32_t* a, long long sa,
                                   const int32_t* b, long long sb,
                                   int32_t* out, int B, int l16,
-                                  const int32_t* m16, const int32_t* mu16,
-                                  const int32_t* midx, int k, int tpi,
-                                  int nw, int threads, int blocks,
-                                  void* stream) {
+                                  const int32_t* m16, const int32_t* aux16,
+                                  const int32_t* mp, const int32_t* midx,
+                                  int k, int mont, int tpi, int nw,
+                                  int threads, int blocks, void* stream) {
   if (!valid_launch(B, l16, sa, sb, k, tpi, nw, threads, blocks))
     return (int)cudaErrorInvalidValue;
+  if (mont && mp == nullptr) return (int)cudaErrorInvalidValue;
   if (B <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
+#define BODY(T, N, M)                                                   \
+  mulmod_rows_kernel<T, N, M><<<blocks, threads, 0, s>>>(              \
+      a, sa, b, sb, out, B, l16, m16, aux16, mp, midx, k)
 #define LAUNCH(T, N)                                                    \
   if (tpi == T && nw == N) {                                           \
-    mulmod_rows_kernel<T, N><<<blocks, threads, 0, s>>>(               \
-        a, sa, b, sb, out, B, l16, m16, mu16, midx, k);                \
+    if (mont)                                                          \
+      BODY(T, N, true);                                                \
+    else                                                               \
+      BODY(T, N, false);                                               \
     return (int)cudaGetLastError();                                    \
   }
   MULMOD_SHAPES(LAUNCH)
 #undef LAUNCH
+#undef BODY
   return (int)cudaErrorInvalidValue;
 }

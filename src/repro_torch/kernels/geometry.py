@@ -11,10 +11,11 @@ ceil(k / TPI) words rounded up to a power of two, one of the
 instantiations that ``SHAPES`` lists (the ``*_SHAPES`` macros of the
 sources).  ``modexp_fixed`` runs one warp per block, so its small batches
 spread over the SMs; ``modexp`` and ``mulmod`` run 64-thread blocks.  The
-per-row-modulus bodies (``mulmod_rows``, ``modexp_rows[...]``: one modulus
-per row, the serving path's cross-tenant launches) take the geometry of
-their broadcast counterparts, but the Montgomery ``modexp_rows`` bodies,
-whose group size comes from a sweep at the serving path's n^2.
+per-row-modulus bodies (``mulmod_rows[...]``, ``modexp_rows[...]``: one
+modulus per row, the serving path's cross-tenant launches) take the
+geometry of their broadcast counterparts, but the Montgomery
+``modexp_rows`` bodies, whose group size comes from a sweep at the
+serving path's n^2.
 The win4 and fixed ladders keep a 16-entry power table per integer in
 dynamic shared memory.  The product tree's bodies (``prod_rows[...]``,
 ``csrc/prodtree.cu``) fold each row's factors with G groups of threads
@@ -38,7 +39,8 @@ BODIES = ("mulmod",
           "modexp[montgomery,win4]", "modexp[montgomery,binary]",
           "modexp[barrett,win4]", "modexp[barrett,binary]",
           "modexp_fixed[montgomery]", "modexp_fixed[barrett]",
-          "mulmod_rows", "modexp_rows[barrett,win4]",
+          "mulmod_rows[montgomery]", "mulmod_rows[barrett]",
+          "modexp_rows[barrett,win4]",
           "modexp_rows[barrett,binary]", "modexp_rows[montgomery,win4]",
           "modexp_rows[montgomery,binary]",
           "prod_rows[montgomery]", "prod_rows[barrett]")
@@ -70,22 +72,31 @@ TPI = {"mulmod": 32,
        "modexp[montgomery,win4]": 8, "modexp[montgomery,binary]": 8,
        "modexp[barrett,win4]": 16, "modexp[barrett,binary]": 8,
        "modexp_fixed[montgomery]": 32, "modexp_fixed[barrett]": 32,
-       "mulmod_rows": 32, "modexp_rows[barrett,win4]": 16,
+       "mulmod_rows[montgomery]": 32, "mulmod_rows[barrett]": 32,
+       "modexp_rows[barrett,win4]": 16,
        "modexp_rows[barrett,binary]": 8,
        "modexp_rows[montgomery,win4]": 16,
        "modexp_rows[montgomery,binary]": 16,
        # the product tree: TPI 16 was fastest of 8, 16 and 32 at every
        # shape of its sweep (TREE_GROUPS below)
        "prod_rows[montgomery]": 16, "prod_rows[barrett]": 16}
-#: From this batch on, mulmod runs MULMOD_FULL_WORDS words per lane (8 or
-#: 16 threads per integer at the main path's widths).  chip_smoke.py's
+#: From this batch on, mulmod and both mulmod_rows bodies run
+#: MULMOD_FULL_WORDS words per lane (8 or 16 threads per integer at the
+#: main path's widths).  chip_smoke.py's
 #: sweep on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6), device
 #: ms at n^2 (k = 128) for TPI 32 / 16: B = 192 0.0318 / 0.0474, 2,304
 #: 0.0647 / 0.0700, 4,608 0.1125 / 0.1066, 18,432 0.3976 / 0.3301; at p^2
 #: (k = 64) for TPI 32 / 8: B = 192 0.0154 / 0.0269, 36,864 0.2639 /
 #: 0.1846.  While the card is nearly empty one integer's latency rules
 #: and the widest group wins; once it is full, 8 words per lane spend
-#: fewer shuffles per word product.
+#: fewer shuffles per word product.  The per-row bodies keep this rule
+#: and 64-thread blocks: the same card's sweep over four moduli (TPI 8 /
+#: 16 / 32 in 64-, 128- and 256-thread blocks, ``time_mulmod_rows_s1``)
+#: found it the fastest, or within 4 % of the fastest, at each of S1's
+#: and S2's shapes, B = 576 ... 4,608 at k = 64 and 128.  The Montgomery
+#: body's two misses, device ms: k = 128, B = 2,304 TPI 16 0.0687 against
+#: the rule's TPI 32 0.0708; k = 64, B = 4,608 TPI 32 0.0378 against the
+#: rule's TPI 8 0.0394.
 MULMOD_FULL_BATCH = 4096
 MULMOD_FULL_WORDS = 8
 #: (threads per integer, words per thread) of every instantiation of each
@@ -109,7 +120,8 @@ SHAPES = {
     "modexp[barrett,binary]": _MODEXP,
     "modexp_fixed[montgomery]": _MODEXP_FIXED,
     "modexp_fixed[barrett]": _MODEXP_FIXED,
-    "mulmod_rows": _MULMOD,
+    "mulmod_rows[montgomery]": _MULMOD,
+    "mulmod_rows[barrett]": _MULMOD,
     "modexp_rows[barrett,win4]": ((16, 1), (16, 2), (16, 4), (16, 8)),
     "modexp_rows[barrett,binary]": ((8, 1), (8, 2), (8, 4), (8, 8), (8, 16)),
     "modexp_rows[montgomery,win4]": _MODEXP_ROWS_MONT,
@@ -162,13 +174,13 @@ class Geometry:
 
 def body_name(kernel: str, reduce_impl: str = "montgomery",
               method: str = "win4") -> str:
-    """The body a launch of ``kernel`` runs: ``mulmod``, ``mulmod_rows``,
-    ``modexp[<reduce_impl>,<method>]``,
+    """The body a launch of ``kernel`` runs: ``mulmod``,
+    ``mulmod_rows[<reduce_impl>]``, ``modexp[<reduce_impl>,<method>]``,
     ``modexp_rows[<reduce_impl>,<method>]`` or
     ``modexp_fixed[<reduce_impl>]`` or ``prod_rows[<reduce_impl>]``."""
-    if kernel == "prod_rows":
-        return f"prod_rows[{reduce_impl}]"
-    if kernel in ("mulmod", "mulmod_rows"):
+    if kernel in ("prod_rows", "mulmod_rows"):
+        return f"{kernel}[{reduce_impl}]"
+    if kernel == "mulmod":
         return kernel
     if kernel in ("modexp", "modexp_rows"):
         return f"{kernel}[{reduce_impl},{method}]"
@@ -196,10 +208,11 @@ def _words(body: str, k: int, tpi: int) -> int:
 
 def group_size(body: str, B: int, k: int) -> int:
     """Threads per integer of ``body`` at batch B and width k:
-    :data:`TPI`'s, but for a ``mulmod`` or ``mulmod_rows`` batch that fills
-    the card the size that gives each lane :data:`MULMOD_FULL_WORDS` words
-    (at least 8 threads, at most :data:`TPI`'s)."""
-    if body in ("mulmod", "mulmod_rows") and B >= MULMOD_FULL_BATCH:
+    :data:`TPI`'s, but for a ``mulmod`` or ``mulmod_rows[...]`` batch that
+    fills the card the size that gives each lane :data:`MULMOD_FULL_WORDS`
+    words (at least 8 threads, at most :data:`TPI`'s)."""
+    if body.split("[")[0] in ("mulmod", "mulmod_rows") \
+            and B >= MULMOD_FULL_BATCH:
         return min(TPI[body],
                    max(8, _pow2_at_least(-(-k // MULMOD_FULL_WORDS))))
     return TPI[body]

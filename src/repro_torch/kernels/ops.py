@@ -18,8 +18,9 @@ The rows layer (:func:`rows_modulus`, :func:`mulmod_rows`,
 :func:`modexp_rows`, :func:`prod_rows`) takes one modulus per row, each a
 tenant's n^2 in the serving path's cross-tenant launches; ``modexp_rows``
 follows ``REPRO_REDUCE_IMPL`` as ``modexp`` does (Montgomery by default,
-Barrett for a table with an even modulus), ``mulmod_rows`` is Barrett,
-as standalone ``mulmod`` is.  :func:`prod_mod` is ``prod_rows`` under one
+Barrett for a table with an even modulus); ``mulmod_rows`` follows the
+moduli only (Montgomery when every one is odd, else Barrett), as
+``prod_rows`` does.  :func:`prod_mod` is ``prod_rows`` under one
 modulus (the matvec's product tree, ``paillier_vec.mul_tree``): both run
 one ``csrc/prodtree.cu`` launch a product (``kernels/prodtree.py``),
 Montgomery when every modulus is odd and Barrett otherwise, whatever
@@ -294,15 +295,15 @@ def _rows_table(moduli: tuple, L8: int, device: str) -> cm.DeviceModulus:
     W = 2 * L32
 
     def t(rows):
-        return torch.as_tensor(np.stack(rows), device=device)
+        return bi.to_device(np.stack(rows), device)
 
     mont = [mg.mont_constants(m, L32, limb_bits=32) for m in moduli]
     mp = minv = r1 = r2 = None
     if all(mont):
         R = 1 << (32 * L32)
         # -m^{-1} mod 2^32 as the int32 of the same bits
-        mp = torch.tensor([c[0] - (c[0] >> 31 << 32) for c in mont],
-                          dtype=torch.int32, device=device)
+        mp = bi.to_device(np.array([c[0] - (c[0] >> 31 << 32)
+                                    for c in mont], np.int32), device)
         minv = t([bi.from_int((-pow(m, -1, R)) % R, W) for m in moduli])
         r1 = t([bi.from_int(c[1], W) for c in mont])
         r2 = t([bi.from_int(c[2], W) for c in mont])
@@ -322,7 +323,10 @@ def rows_modulus(ms, L8: int, device=None) -> cm.RowsModulus:
     clustering is the caller's, the coalescer's, fusion invariant): one
     with a zero top byte raises ``ValueError``, a wider one
     ``OverflowError``, as in the reference.  The distinct moduli form the
-    table (first appearance order); ``device`` defaults to the card.
+    table (first appearance order); ``device`` defaults to the card.  The
+    index goes to the device without a wait (``bigint.to_device``), its
+    range noted from these host ints for the kernels' check
+    (``common.index_range``).
     """
     dev = resolve_device(device)
     index: dict[int, int] = {}
@@ -337,9 +341,9 @@ def rows_modulus(ms, L8: int, device=None) -> cm.RowsModulus:
     moduli = tuple(index)
     if not moduli:
         raise ValueError("rows_modulus needs at least one row")
-    return cm.RowsModulus(_rows_table(moduli, L8, str(dev)),
-                          torch.tensor(midx, dtype=torch.int32, device=dev),
-                          moduli)
+    idx = cm.note_index_range(
+        bi.to_device(np.asarray(midx, np.int32), dev), 0, len(moduli) - 1)
+    return cm.RowsModulus(_rows_table(moduli, L8, str(dev)), idx, moduli)
 
 
 def _rows_operand(x, rm: cm.RowsModulus, name: str) -> torch.Tensor:
@@ -355,7 +359,8 @@ def _rows_operand(x, rm: cm.RowsModulus, name: str) -> torch.Tensor:
 def mulmod_rows(a: torch.Tensor, b: torch.Tensor,
                 rm: cm.RowsModulus) -> torch.Tensor:
     """(a*b) mod m row-wise, m = row i's modulus: (B, L16) x (B, L16) ->
-    (B, L16)."""
+    (B, L16), exact for any operands below 2^{16 L16}; Montgomery when
+    every table modulus is odd, else Barrett."""
     a = _rows_operand(a, rm, "mulmod_rows a")
     b = _rows_operand(b, rm, "mulmod_rows b")
     if rm.B == 0:
@@ -393,8 +398,8 @@ def _tree_correction(moduli: tuple, L32: int, n: int,
     (``kernels/prodtree.py``).  One small modexp a modulus, once per
     (table, n, device)."""
     R = 1 << (32 * L32)
-    return torch.as_tensor(np.stack([bi.from_int(pow(R, n, m), 2 * L32)
-                                     for m in moduli]), device=device)
+    return bi.to_device(np.stack([bi.from_int(pow(R, n, m), 2 * L32)
+                                  for m in moduli]), device)
 
 
 def _prod(x: torch.Tensor, moduli: tuple, table: cm.DeviceModulus,

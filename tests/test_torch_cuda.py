@@ -23,14 +23,17 @@ vec arm, the collaborative mode, a consensus family through secure
 aggregation and a churned run) and small runs of the event-driven
 runtime (sync gold and vec, deadline gold) are held against the same
 runs on the CPU.  The serving path's per-row-modulus bodies
-(``mulmod_rows``, ``modexp_rows`` with both reductions and both ladders)
-are held against their plain versions and Python ints at k = 8, 32, 64
-and 128 with three moduli per launch (one with a top byte of 1, and an
-even one for the Barrett bodies), ragged batches, every group and block
-size the Montgomery bodies' sweep times at n^2, and 2,048-bit exponents
-at n^2; the rows Paillier ops on the card against
-the CPU; and a small ``ProtocolEngine`` run on the card against its
-tenants' solo runs.  The product-tree kernel (both bodies) is held
+(``mulmod_rows`` and ``modexp_rows``, each with both reductions, and
+both ladders) are held against their plain versions and Python ints at
+k = 8, 32, 64 and 128 with three moduli per launch (one with a top byte
+of 1, and an even one for the Barrett bodies: ``mulmod_rows`` launches
+Montgomery on an all-odd table and Barrett on one with an even modulus),
+ragged batches, every group and block size the sweeps time, both
+``mulmod_rows`` bodies at S1's and S2's shapes, and 2,048-bit exponents
+at n^2; the rows Paillier ops on the card against the CPU, and under
+``torch.cuda.set_sync_debug_mode("error")`` up to their first read-back;
+and a small ``ProtocolEngine`` run on the card against its tenants' solo
+runs.  The product-tree kernel (both bodies) is held
 against its plain version and Python ints at k = 8, 32, 64 and 128, N in
 {2, 3, 17, 192}, three moduli a launch (an even one for Barrett) and one
 (``ops.prod_mod``), factors up to 2^{16 L16} - 1, at every (TPI, G,
@@ -523,20 +526,29 @@ def _rows_body(body: str) -> tuple:
     return impl, method
 
 
+MULMOD_ROWS_BODIES = ("mulmod_rows[montgomery]", "mulmod_rows[barrett]")
+
+
 @pytest.mark.parametrize("k", ROWS_WIDTHS)
-@pytest.mark.parametrize("B", _rows_batches("mulmod_rows")
+@pytest.mark.parametrize("odd", (True, False))
+@pytest.mark.parametrize("B", _rows_batches("mulmod_rows[montgomery]")
                          + (geometry.MULMOD_FULL_BATCH + 3,))
-def test_mulmod_rows_matches_plain_and_ints(dev, k, B):
+def test_mulmod_rows_matches_plain_and_ints(dev, k, odd, B):
     """Full-width operands (any value below 2^{16 L16}), three moduli per
-    launch, ragged batches and the batch from which smaller groups run."""
-    per_row, rm = _rows_case(k, B, dev)
+    launch, ragged batches and the batch from which smaller groups run:
+    an all-odd table launches the Montgomery body, one with an even
+    modulus the Barrett body (one row: its modulus is odd)."""
+    per_row, rm = _rows_case(k, B, dev, odd)
+    assert rm.montgomery == (odd or B == 1)
+    body = MULMOD_ROWS_BODIES[0 if rm.montgomery else 1]
     rng = random.Random(k * 13 + B)
     a, at = _rows(rng, B, rm.table.L16, dev)
     b, bt = _rows(rng, B, rm.table.L16, dev)
-    before = build.LAUNCHES["mulmod_rows"]
+    before = dict(build.LAUNCHES)
     out = lm.mulmod_rows_cuda(at, bt, rm)
     torch.cuda.synchronize()
-    assert build.LAUNCHES["mulmod_rows"] == before + 1
+    assert {n: build.LAUNCHES[n] - before[n] for n in MULMOD_ROWS_BODIES} \
+        == {n: int(n == body) for n in MULMOD_ROWS_BODIES}
     assert torch.equal(out, lm.mulmod_rows_plain(at, bt, rm))
     want = [(x * y) % m for x, y, m in zip(a, b, per_row)]
     assert bi.to_ints(out) == want
@@ -546,16 +558,102 @@ def test_mulmod_rows_matches_plain_and_ints(dev, k, B):
 
 
 @pytest.mark.parametrize("k", ROWS_WIDTHS)
-@pytest.mark.parametrize("tpi", sorted({t for t, _ in
-                                        geometry.SHAPES["mulmod_rows"]}))
-def test_mulmod_rows_every_group_size(dev, k, tpi):
-    per_row, rm = _rows_case(k, 77, dev)
+@pytest.mark.parametrize("body, tpi, threads", [
+    (body, tpi, threads) for body in MULMOD_ROWS_BODIES
+    for tpi in sorted({t for t, _ in geometry.SHAPES[body]})
+    for threads in geometry.SWEEP_THREADS])
+def test_mulmod_rows_every_group_size(dev, k, body, tpi, threads):
+    """Every group and block size of both bodies, the Barrett body on an
+    all-odd table too."""
+    impl = body[len("mulmod_rows["):-1]
+    per_row, rm = _rows_case(k, 77, dev, True)
     rng = random.Random(k + tpi)
     a, at = _rows(rng, 77, rm.table.L16, dev)
     b, bt = _rows(rng, 77, rm.table.L16, dev)
-    out = lm.mulmod_rows_cuda(at, bt, rm, tpi=tpi)
+    out = lm.mulmod_rows_cuda(at, bt, rm, impl, tpi=tpi, threads=threads)
     torch.cuda.synchronize()
     assert bi.to_ints(out) == [(x * y) % m for x, y, m in zip(a, b, per_row)]
+
+
+#: S1's and S2's sums and blinding products: rows at n^2 (k = 128) and
+#: p^2-width n^2 of a 1,024-bit key (k = 64), over four tenants
+S1_MULMOD_ROWS = [(B, k) for B in (576, 1152, 2304, 4608) for k in (64, 128)]
+
+
+@pytest.mark.parametrize("B, k", S1_MULMOD_ROWS)
+@pytest.mark.parametrize("body", MULMOD_ROWS_BODIES)
+def test_mulmod_rows_bodies_at_s1_shapes(dev, B, k, body):
+    """Both bodies at S1's and S2's shapes over four odd moduli (each
+    tenant's rows together), operands up to 2^{32k} - 1: equal to the
+    plain version on every row and to ints on sample rows."""
+    impl = body[len("mulmod_rows["):-1]
+    rng = random.Random(B + k)
+    ms = [rng.getrandbits(32 * k) | (1 << (32 * k - 1)) | 1
+          for _ in range(4)]
+    per_row = [ms[i * 4 // B] for i in range(B)]
+    rm = ops.rows_modulus(per_row, 4 * k, dev)
+    a, at = _rows(rng, B, rm.table.L16, dev)
+    b, bt = _rows(rng, B, rm.table.L16, dev)
+    out = lm.mulmod_rows_cuda(at, bt, rm, impl)
+    torch.cuda.synchronize()
+    assert torch.equal(out, lm.mulmod_rows_plain(at, bt, rm, impl))
+    sel = list(range(4)) + list(range(B - 4, B))
+    got = bi.to_ints(out[torch.as_tensor(sel, device=dev)].cpu())
+    assert got == [a[i] * b[i] % per_row[i] for i in sel]
+
+
+def test_rows_launch_path_never_synchronizes(dev):
+    """enc_rows, add_rows and matvec_rows of two tenants, and dec_rows up
+    to its read-back, run under torch.cuda.set_sync_debug_mode("error"):
+    no host upload, index check or launch waits for the device."""
+    from repro_torch.core import paillier as gold
+    from repro_torch.core import paillier_batch as pb
+    keys = [gold.keygen(512, random.Random(s)) for s in (3, 4)]
+    rng = random.Random(1)
+    enc_items = [(k, [rng.getrandbits(40) for _ in range(n)],
+                  [gold.rand_r(k, rng) for _ in range(n)])
+                 for k, n in zip(keys, (5, 3))]
+    Ks = [np.array([[[rng.getrandbits(20) for _ in range(3)]
+                     for _ in range(2)]], dtype=object) for _ in keys]
+    pb.dec_rows([(k, c) for k, c in zip(keys, pb.enc_rows(
+        enc_items, device=dev))], device=dev)  # tables, kernels: warm
+    torch.cuda.synchronize()
+    # the detector sees what the launch path used to do: a read of a
+    # device index and a blocking upload
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):
+            int(torch.arange(3, device=dev).max())
+        with pytest.raises(RuntimeError):
+            torch.as_tensor(np.arange(3), device=dev)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    real_to_ints = pb.bi.to_ints
+    reads = []
+
+    def to_ints(x):                 # the first read-back may wait
+        reads.append(torch.cuda.get_sync_debug_mode())
+        torch.cuda.set_sync_debug_mode(0)
+        return real_to_ints(x)
+
+    pb.bi.to_ints = to_ints
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cts = pb.enc_rows(enc_items, device=dev)
+        sums = pb.add_rows([(k, c, c) for k, c in zip(keys, cts)],
+                           device=dev)
+        mv = pb.matvec_rows([(k, K, [c[:3]]) for k, K, c in
+                             zip(keys, Ks, cts)], device=dev)
+        plain = pb.dec_rows([(k, c) for k, c in zip(keys, cts)], device=dev)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        pb.bi.to_ints = real_to_ints
+    assert reads == [2]
+    assert plain == [ms for _, ms, _ in enc_items]
+    for (k, ms, _), s, o in zip(enc_items, sums, mv):
+        assert pb.dec_rows([(k, s)], device=dev)[0] == [
+            2 * m % k.n for m in ms]
+        assert o.shape[:2] == (1, 2)
 
 
 @pytest.mark.parametrize("k", ROWS_WIDTHS)
@@ -753,7 +851,7 @@ def test_serving_engine_on_card_equals_solo_runs(dev):
         eng.admit(inst.A, inst.y, cfg, tid=tid)
     res = eng.run()
     assert eng.stats()["serve"]["fused_launches"] > 0
-    for body in ("mulmod_rows", "modexp_rows[montgomery,win4]"):
+    for body in ("mulmod_rows[montgomery]", "modexp_rows[montgomery,win4]"):
         assert build.LAUNCHES[body] > 0, build.LAUNCHES
     for tid, cfg in cfgs.items():
         rt, master, wl, mode = runner.build_runtime(inst.A, inst.y, cfg)

@@ -413,8 +413,10 @@ def test_launch_geometry_covers_every_width(body):
     ("modexp_rows[montgomery,win4]", 2_304, 128, (16, 8, 4, 576, 32768)),
     ("modexp_rows[montgomery,win4]", 4_608, 64, (16, 4, 4, 1152, 16384)),
     ("modexp_rows[montgomery,binary]", 4_608, 128, (16, 8, 4, 1152, 0)),
-    ("mulmod_rows", 221_184, 128, (16, 8, 4, 55_296, 0)),
-    ("mulmod_rows", 2_304, 128, (32, 4, 2, 1152, 0)),
+    ("mulmod_rows[montgomery]", 221_184, 128, (16, 8, 4, 55_296, 0)),
+    ("mulmod_rows[montgomery]", 2_304, 128, (32, 4, 2, 1152, 0)),
+    ("mulmod_rows[barrett]", 221_184, 128, (16, 8, 4, 55_296, 0)),
+    ("mulmod_rows[barrett]", 2_304, 128, (32, 4, 2, 1152, 0)),
 ])
 def test_launch_geometry_main_path_shapes(body, B, k, want):
     """The main path's launches, one case per launch shape."""
@@ -504,9 +506,10 @@ def test_launch_geometry_rejects_blocks_over_the_limits(
 
 def test_body_names_are_the_launch_counter_keys():
     assert set(build.LAUNCHES) == set(geometry.BODIES)
-    names = {geometry.body_name("mulmod"), geometry.body_name("mulmod_rows")}
+    names = {geometry.body_name("mulmod")}
     for impl in ("montgomery", "barrett"):
         names.add(geometry.body_name("modexp_fixed", impl))
+        names.add(geometry.body_name("mulmod_rows", impl))
         for method in ("win4", "binary"):
             names.add(geometry.body_name("modexp", impl, method))
     for impl in ("montgomery", "barrett"):  # the per-row bodies
