@@ -1,0 +1,31 @@
+"""Device-idle seconds a round charged to the exponent preparation of the
+Paillier-batch layer: the program's ``paillier.exps*`` spans and the
+harness's ``paillier_batch._norm_exps`` label (``idle_gaps`` of the
+trace, over ``run.tenant_rounds``).
+
+The trace's breakdown keeps only its ten largest gaps, so the reading is
+a lower bound.  ``None`` without a trace, and where the program has no
+span table (``repro_torch.obs.trace.SPANS``) to name its steps.
+"""
+#: the program's span names counted, by prefix
+PROGRAM = ("paillier.exps",)
+#: the harness's labels counted, by prefix (``portbench.spans.labels()``)
+HARNESS = ("paillier_batch._norm_exps",)
+
+
+def names() -> set | None:
+    from portbench import spans
+    from repro_torch.obs import trace
+    table = getattr(trace, "SPANS", None)
+    if table is None:
+        return None
+    return {n for n in table if n.startswith(PROGRAM)} \
+        | {n for n in spans.labels() if n.startswith(HARNESS)}
+
+
+def read(run):
+    counted = names()
+    if run.trace is None or counted is None or not run.tenant_rounds:
+        return None
+    return sum(s for name, s in run.trace.idle_gaps
+               if name in counted) / run.tenant_rounds

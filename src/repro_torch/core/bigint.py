@@ -22,6 +22,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..obs import metrics as obs_metrics
+from ..obs import trace
+
 LIMB_BITS = 16
 LIMB_BASE = 1 << LIMB_BITS
 LIMB_MASK = LIMB_BASE - 1
@@ -44,6 +47,7 @@ def from_int(x: int, n_limbs: int) -> np.ndarray:
     return out
 
 
+@trace.spanned("paillier.pack")
 def from_ints(xs, n_limbs: int) -> np.ndarray:
     """Vectorize :func:`from_int` over a flat list -> (len(xs), n_limbs)."""
     xs = [int(x) for x in xs]
@@ -74,6 +78,7 @@ def to_int(limbs) -> int:
     return out
 
 
+@trace.spanned("paillier.unpack")
 def to_ints(limbs) -> list:
     """Decode a (..., L) limb array or tensor to a flat list of Python ints
     (limbs must be normalized to [0, 2^16))."""
@@ -90,11 +95,15 @@ def to_ints(limbs) -> list:
 
 
 def _host(limbs) -> np.ndarray:
-    if isinstance(limbs, torch.Tensor):
+    if not isinstance(limbs, torch.Tensor):
+        return np.asarray(limbs)
+    if not limbs.is_cuda:
         return limbs.detach().cpu().numpy()
-    return np.asarray(limbs)
+    with trace.wait("wait.to_host"):
+        return limbs.detach().cpu().numpy()
 
 
+@trace.spanned("paillier.pack")
 def to_device(arr, device) -> torch.Tensor:
     """A host array (numpy, or a list of ints) as a tensor on ``device``,
     without waiting for a CUDA device: through pinned memory and an
@@ -130,9 +139,12 @@ def _i64(x: torch.Tensor) -> torch.Tensor:
 def _norm(v: torch.Tensor) -> torch.Tensor:
     """Normalize int64 coefficients (any sign) to limbs in [0, 2^16),
     exact mod 2^{16 L}: fold every limb's carry into the next one until
-    none is left (a few rounds; a carry chain of k limbs takes k)."""
+    none is left (a few rounds; a carry chain of k limbs takes k).  On a
+    card each round reads its carry test back: a wait, counted."""
     while True:
         c = v >> LIMB_BITS
+        if c.is_cuda:
+            obs_metrics.PROCESS.count("wait.carry")
         if not bool(c.any()):
             return v
         v = v & LIMB_MASK

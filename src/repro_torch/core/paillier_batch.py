@@ -38,6 +38,7 @@ from . import paillier as gold
 from . import paillier_vec as pv
 from .cipher_tensor import CipherTensor
 from ..kernels import ops
+from ..obs import trace
 
 # Below this batch size the per-launch overhead dominates and callers keep
 # the scalar gold path (the protocol boxes apply this threshold).
@@ -63,6 +64,7 @@ def make_batch_key(key: gold.PaillierKey, device=None) -> BatchKey:
     return _batch_key(key, str(resolve_device(device)))
 
 
+@trace.spanned("paillier.blind")
 def rand_r_vec(key: gold.PaillierKey, count: int,
                rng: random.Random) -> list[int]:
     """``count`` blinding units r in Z*_n — same stream as repeated
@@ -71,7 +73,13 @@ def rand_r_vec(key: gold.PaillierKey, count: int,
 
 
 def _limbs(bk: BatchKey, ints, L: int) -> torch.Tensor:
-    return torch.as_tensor(bi.from_ints(ints, L), device=bk.device)
+    """``ints`` as (len, L) limbs on ``bk.device``; a copy to a card from
+    pageable memory waits for its stream to drain."""
+    host = bi.from_ints(ints, L)
+    if bk.device.type != "cuda":
+        return torch.as_tensor(host, device=bk.device)
+    with trace.wait("wait.limbs"):
+        return torch.as_tensor(host, device=bk.device)
 
 
 # ---------------------------------------------------------------------------
@@ -82,7 +90,8 @@ def _norm_exps(exps, batch: int) -> list[int]:
     if isinstance(exps, (int, np.integer)):
         exps = [int(exps)] * batch
     else:
-        exps = [int(e) for e in exps]
+        with trace.span("paillier.exps"):
+            exps = [int(e) for e in exps]
     if len(exps) != batch:
         raise ValueError(f"{len(exps)} exponents for a batch of {batch}")
     return exps
@@ -171,9 +180,10 @@ def _halves(bk: BatchKey, bp, bq, exps, scalar_e, fixed: bool,
     body = _crt_body(bk, scalar_e, fixed, then)
     if fixed and scalar_e is not None:
         return _run_split(body, bp, bq, group=group)
-    ep = [e % key.phi_p2 for e in exps]
-    eq = [e % key.phi_q2 for e in exps]
-    le = max(1, max(bi.n_limbs_for(e) for e in ep + eq))
+    with trace.span("paillier.exps_phi"):
+        ep = [e % key.phi_p2 for e in exps]
+        eq = [e % key.phi_q2 for e in exps]
+        le = max(1, max(bi.n_limbs_for(e) for e in ep + eq))
     return _run_split(body, bp, _limbs(bk, ep, le), bq, _limbs(bk, eq, le),
                       group=group)
 
@@ -189,15 +199,19 @@ def modexp_crt_limbs(bk: BatchKey, bases: Sequence[int], exps,
     """
     key, vk = bk.key, bk.vk
     B = len(bases)
-    bases = [int(b) for b in bases]
     scalar_e = int(exps) if isinstance(exps, (int, np.integer)) else None
     exps = _norm_exps(exps, B)
-    for i, e in enumerate(exps):
-        if e < 0:   # pow()-compatible: invert the base (egcd), negate e
-            bases[i] = pow(bases[i], -1, key.n2)
-            exps[i] = -e
-    bp = _limbs(bk, [b % key.p2 for b in bases], vk.pack_p2.L16)
-    bq = _limbs(bk, [b % key.q2 for b in bases], vk.pack_q2.L16)
+    with trace.span("paillier.exps_sign"):
+        bases = [int(b) for b in bases]
+        for i, e in enumerate(exps):
+            if e < 0:   # pow()-compatible: invert the base (egcd), negate e
+                bases[i] = pow(bases[i], -1, key.n2)
+                exps[i] = -e
+    with trace.span("paillier.residues"):
+        rp = [b % key.p2 for b in bases]
+        rq = [b % key.q2 for b in bases]
+    bp = _limbs(bk, rp, vk.pack_p2.L16)
+    bq = _limbs(bk, rq, vk.pack_q2.L16)
     if scalar_e is not None:
         scalar_e = abs(scalar_e)
     return _halves(bk, bp, bq, exps, scalar_e, fixed)
@@ -213,7 +227,9 @@ def modexp_crt_limbs_in(bk: BatchKey, base_limbs: torch.Tensor, exps,
     B = int(base_limbs.shape[0])
     scalar_e = int(exps) if isinstance(exps, (int, np.integer)) else None
     exps = _norm_exps(exps, B)
-    if any(e < 0 for e in exps):
+    with trace.span("paillier.exps_sign"):
+        negative = any(e < 0 for e in exps)
+    if negative:
         raise ValueError("limb-resident ModExp needs nonnegative exponents")
     bp = pv._reduce_into(base_limbs, vk.pack_p2)
     bq = pv._reduce_into(base_limbs, vk.pack_q2)
@@ -239,7 +255,9 @@ def pow_c_ct(bk: BatchKey, cs: CipherTensor, ks,
              fixed: bool = False) -> CipherTensor:
     """Limb-in/limb-out ⊗ over a resident ciphertext batch."""
     exps = _norm_exps(ks, len(cs))
-    if any(e < 0 for e in exps):   # host base inversion: materialize once
+    with trace.span("paillier.exps_sign"):
+        negative = any(e < 0 for e in exps)
+    if negative:   # host base inversion: materialize once
         return CipherTensor(
             bk, modexp_crt_limbs(bk, cs.to_ints(), ks, fixed=fixed))
     return CipherTensor(bk, modexp_crt_limbs_in(bk, cs.limbs, ks,
@@ -255,7 +273,9 @@ def _enc_ct_impl(bk: BatchKey, ms: list[int], rs: list[int]) -> CipherTensor:
     r^n through the CRT half spaces; the ciphertexts are born resident."""
     key, vk = bk.key, bk.vk
     rn = modexp_crt_limbs(bk, rs, key.n, fixed=True)
-    m_limbs = _limbs(bk, [m % key.n for m in ms], vk.pack_n.L16)
+    with trace.span("paillier.encode"):
+        ms = [m % key.n for m in ms]
+    m_limbs = _limbs(bk, ms, vk.pack_n.L16)
     gm = bi.mul(m_limbs, pv._row(vk.n_limbs, m_limbs),
                 out_limbs=vk.pack_n2.L16)                   # m*n < n^2
     gm = bi.add(gm, pv._one(gm.shape[-1], gm))              # 1 + m n
@@ -272,7 +292,8 @@ def enc_ct(bk: BatchKey, ms, rng: random.Random) -> CipherTensor:
     key = bk.key
     if key.g != key.n + 1:
         raise NotImplementedError("batched path uses the g = n+1 fast path")
-    ms = [int(m) for m in np.asarray(ms, dtype=object).reshape(-1)]
+    with trace.span("paillier.encode"):
+        ms = [int(m) for m in np.asarray(ms, dtype=object).reshape(-1)]
     if not ms:
         return CipherTensor(bk, torch.zeros((0, bk.vk.pack_n2.L16),
                                             dtype=torch.int32,
@@ -313,7 +334,8 @@ def dec_vec(bk: BatchKey, cs) -> list[int]:
                                            fixed=True))
     else:
         x = modexp_crt_vec(bk, cs, key.lam, fixed=True)
-    return [(xi - 1) // key.n * key.mu % key.n for xi in x]
+    with trace.span("paillier.decode"):
+        return [(xi - 1) // key.n * key.mu % key.n for xi in x]
 
 
 def matvec_many(bk: BatchKey, Ks, cs_list: Sequence) -> list:
@@ -338,12 +360,14 @@ def matvec_many(bk: BatchKey, Ks, cs_list: Sequence) -> list:
         if len(row) != N:
             raise ValueError(f"ciphertext vector {b} has {len(row)} != {N}")
     exps = _norm_exps(Ks.reshape(-1), B * M * N)
+    with trace.span("paillier.exps_sign"):
+        negative = any(e < 0 for e in exps)
     L2 = vk.pack_n2.L16
 
     def tree(powed):   # (rows * N, L2) -> (rows, L2)
         return pv.mul_tree(vk, powed.reshape(-1, N, L2))
 
-    if any(e < 0 for e in exps):
+    if negative:
         rows = [int(c) for row in cs_list for c in row]  # materializes CTs
         bases = [rows[b * N + j] for b in range(B)
                  for _ in range(M) for j in range(N)]
@@ -354,9 +378,12 @@ def matvec_many(bk: BatchKey, Ks, cs_list: Sequence) -> list:
             bp = pv._reduce_into(c, vk.pack_p2)
             bq = pv._reduce_into(c, vk.pack_q2)
         else:
-            rows = [int(c) for row in cs_list for c in row]
-            bp = _limbs(bk, [c % key.p2 for c in rows], vk.pack_p2.L16)
-            bq = _limbs(bk, [c % key.q2 for c in rows], vk.pack_q2.L16)
+            with trace.span("paillier.residues"):
+                rows = [int(c) for row in cs_list for c in row]
+                rp = [c % key.p2 for c in rows]
+                rq = [c % key.q2 for c in rows]
+            bp = _limbs(bk, rp, vk.pack_p2.L16)
+            bq = _limbs(bk, rq, vk.pack_q2.L16)
 
         def bcast(x):   # (B*N, L) -> (B*M*N, L): row b's vector, M times
             x = x.reshape(-1, 1, N, x.shape[-1])
@@ -487,7 +514,8 @@ def _rows_limbs(x, L16: int, dev: torch.device) -> torch.Tensor:
 
 def _key_exps(exps: list[int], tidx: torch.Tensor) -> torch.Tensor:
     """One exponent per tenant, broadcast to its rows: (B, Le16) limbs."""
-    le = max(1, max(bi.n_limbs_for(e) for e in exps))
+    with trace.span("paillier.exps"):
+        le = max(1, max(bi.n_limbs_for(e) for e in exps))
     return bi.to_device(bi.from_ints(exps, le), tidx.device)[tidx]
 
 
@@ -502,7 +530,9 @@ def enc_rows(items: Sequence, device=None) -> list[torch.Tensor]:
     sizes = [len(ms) for _, ms, _ in items]
     dev, base, L16, tidx = _rows_cluster(items, device, sizes)
     rm = base.repeat(sizes)
-    gms = [(1 + int(m) * key.n) % key.n2 for key, ms, _ in items for m in ms]
+    with trace.span("paillier.encode"):
+        gms = [(1 + int(m) * key.n) % key.n2
+               for key, ms, _ in items for m in ms]
     rs = [int(r) for _, _, rs in items for r in rs]
     rn = ops.modexp_rows(_rows_limbs(rs, L16, dev),
                          _key_exps([key.n for key, _, _ in items], tidx), rm)
@@ -523,9 +553,11 @@ def dec_rows(items: Sequence, device=None) -> list[list[int]]:
                         base.repeat(sizes))
     out, i = [], 0
     xs = bi.to_ints(x)
-    for (key, _), n in zip(items, sizes):
-        out.append([(v - 1) // key.n * key.mu % key.n for v in xs[i:i + n]])
-        i += n
+    with trace.span("paillier.decode"):
+        for (key, _), n in zip(items, sizes):
+            out.append([(v - 1) // key.n * key.mu % key.n
+                        for v in xs[i:i + n]])
+            i += n
     return out
 
 
@@ -544,21 +576,21 @@ def _matvec_exps(blocks: list, dev: torch.device) -> torch.Tensor:
     """Every tenant's (E, M, N) exponent block, flattened in order, as
     (sum E M N, Le16) limbs sized to the largest exponent: int64 through
     ``paillier_vec.int64_to_limbs``, wider ints packed on the host."""
-    flat = np.concatenate([np.asarray(K).reshape(-1) for K in blocks])
-    try:
-        k64 = flat.astype(np.int64)
-    except OverflowError:
-        k64 = None
-    if k64 is not None:
-        if k64.size and int(k64.min()) < 0:
-            raise ValueError("matvec_rows requires non-negative exponents")
-        top = int(k64.max()) if k64.size else 0
-        le = max(1, -(-top.bit_length() // bi.LIMB_BITS))
-        return pv.int64_to_limbs(bi.to_device(k64, dev), le)
-    ints = [int(v) for v in flat]
-    if min(ints) < 0:
+    with trace.span("paillier.exps"):
+        flat = np.concatenate([np.asarray(K).reshape(-1) for K in blocks])
+        try:
+            k64 = flat.astype(np.int64)
+        except OverflowError:
+            k64, ints = None, [int(v) for v in flat]
+            lo, le = min(ints), max(bi.n_limbs_for(v) for v in ints)
+        else:
+            lo = int(k64.min()) if k64.size else 0
+            top = int(k64.max()) if k64.size else 0
+            le = max(1, -(-top.bit_length() // bi.LIMB_BITS))
+    if lo < 0:
         raise ValueError("matvec_rows requires non-negative exponents")
-    le = max(bi.n_limbs_for(v) for v in ints)
+    if k64 is not None:
+        return pv.int64_to_limbs(bi.to_device(k64, dev), le)
     return bi.to_device(bi.from_ints(ints, le), dev)
 
 

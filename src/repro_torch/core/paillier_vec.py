@@ -19,6 +19,7 @@ import torch
 from . import bigint as bi
 from . import paillier as gold
 from ..kernels import ops
+from ..obs import metrics as obs_metrics
 
 
 def int64_to_limbs(x: torch.Tensor, n_limbs: int) -> torch.Tensor:
@@ -77,6 +78,8 @@ def make_vec_key(key: gold.PaillierKey) -> VecKey:
 
 def _row(limbs: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     """A constant limb row on ``like``'s device, broadcast to its batch."""
+    if like.is_cuda:   # a copy from pageable memory waits for the stream
+        obs_metrics.PROCESS.count("wait.row")
     row = torch.as_tensor(np.asarray(limbs, np.int32), device=like.device)
     return row.expand(like.shape[0], row.shape[-1])
 

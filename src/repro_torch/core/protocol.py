@@ -50,6 +50,7 @@ from .. import workloads as workloads_mod
 from ..obs import health as health_mod
 from ..obs import ledger as ledger_mod
 from ..obs import metrics as obs_metrics
+from ..obs import trace
 from . import bigint as bi
 from . import cipher_tensor as ct_mod
 from . import paillier as gold
@@ -150,7 +151,8 @@ class GoldBox:
         return [(a * b) % self.key.n2 for a, b in zip(c1, c2)]
 
     def matvec(self, K: np.ndarray, c):
-        Km = np.asarray(K, dtype=object)
+        with trace.span("paillier.exps"):
+            Km = np.asarray(K, dtype=object)
         M, N = Km.shape
         self.counter.bump("modexp", M * N)
         self.counter.bump("mulmod", M * (N - 1))
@@ -238,7 +240,11 @@ class VecBox:
         self.counter.bump("dec", int(c.shape[0]))
         m_limbs = pv.decrypt_batch_limbs(self.vk, c)
         if self.plain_bits <= 62:           # every plaintext fits int64
-            return pv.limbs_to_int64(m_limbs).cpu().numpy()
+            m64 = pv.limbs_to_int64(m_limbs)
+            if m64.device.type != "cuda":
+                return m64.numpy()
+            with trace.wait("wait.vec_decrypt"):
+                return m64.cpu().numpy()
         return np.array(bi.to_ints(m_limbs), dtype=object)
 
     def ct_bytes(self, n_el: int) -> int:
@@ -444,7 +450,9 @@ def run_protocol(A: np.ndarray, y: np.ndarray, cfg: ProtocolConfig,
     Γ₂(C_k), ⊕ the stored Γ₁(u3_k).  ``health`` turns on the live
     watchers (``stats["health"]``, outside the report core).
     ``stats["seconds"]`` (outside the core too) holds the wall seconds
-    per phase and per round.  ``deadline`` mode and ``cipher="auto"`` run
+    per phase and per round, ``stats["waits"]`` the times the process
+    blocked on the card while the run was open, by site
+    (``obs.metrics.PROCESS``).  ``deadline`` mode and ``cipher="auto"`` run
     on the event-driven runtime (``runtime.runner.run_on_runtime``).
     """
     if cfg.deadline is not None or cfg.cipher == "auto":
@@ -469,50 +477,54 @@ def run_protocol(A: np.ndarray, y: np.ndarray, cfg: ProtocolConfig,
     N_state, Nk = wl.dims(A, K)
     spec = cfg.spec
     clock = _PhaseClock(dev)
+    waits0 = dict(obs_metrics.PROCESS.counters)
 
     counter = OpCounter()
-    box, key = make_box(cfg, Nk, rng, counter, device=dev)
     traffic = defaultdict(int)
 
     # --- Initialization phase -------------------------------------------
-    counter.phase = PHASE_INIT
-    ys = y / K if cfg.y_scale == "consistent" else y
-    st = wl.init_state(np.asarray(A, np.float64),
-                       np.asarray(y, np.float64), ys, K,
-                       y_scale=cfg.y_scale)
-    agg_ctx = None
-    if wl.uses_secure_agg:
-        # row-split consensus: the z-update's cross-edge aggregate runs
-        # through secure aggregation (encrypted when the run has a key,
-        # the bit-exact plaintext mirror otherwise) on its own rng stream
-        agg_ctx = workloads_mod.SecureAggContext.for_run(
-            spec, key, cfg.seed, counter, box.ct_bytes(1), device=dev)
-        st.aux["secure_agg"] = agg_ctx
-    edges = [EdgeNode(k, spec) for k in range(K)]
-    C_rowsums, Bks, u3s = [], [], []
-    for k, edge in enumerate(edges):
-        Qk, mu, scale = wl.edge_setup(st, k)
-        traffic["master->edge"] += Qk.nbytes
-        Bk = edge.init_phase(Qk, mu, scale)
-        traffic["edge->master"] += Bk.nbytes
-        C_rowsums.append((Bk * scale) @ np.ones(Nk))
-        Bks.append(Bk)
-        u3s.append(wl.share_vector(st, k, Bk))
-        if cfg.collaborative and key is not None:
-            edge.collab_setup(key.p2, key.phi_p2, key.g,
-                              batch=cfg.gold_batch, device=dev)
-    clock.lap(PHASE_INIT)
+    with trace.span("driver.init"):
+        box, key = make_box(cfg, Nk, rng, counter, device=dev)
+        counter.phase = PHASE_INIT
+        ys = y / K if cfg.y_scale == "consistent" else y
+        st = wl.init_state(np.asarray(A, np.float64),
+                           np.asarray(y, np.float64), ys, K,
+                           y_scale=cfg.y_scale)
+        agg_ctx = None
+        if wl.uses_secure_agg:
+            # row-split consensus: the z-update's cross-edge aggregate
+            # runs through secure aggregation (encrypted when the run has a
+            # key, the bit-exact plaintext mirror otherwise) on its own rng
+            # stream
+            agg_ctx = workloads_mod.SecureAggContext.for_run(
+                spec, key, cfg.seed, counter, box.ct_bytes(1), device=dev)
+            st.aux["secure_agg"] = agg_ctx
+        edges = [EdgeNode(k, spec) for k in range(K)]
+        C_rowsums, Bks, u3s = [], [], []
+        for k, edge in enumerate(edges):
+            Qk, mu, scale = wl.edge_setup(st, k)
+            traffic["master->edge"] += Qk.nbytes
+            Bk = edge.init_phase(Qk, mu, scale)
+            traffic["edge->master"] += Bk.nbytes
+            C_rowsums.append((Bk * scale) @ np.ones(Nk))
+            Bks.append(Bk)
+            u3s.append(wl.share_vector(st, k, Bk))
+            if cfg.collaborative and key is not None:
+                edge.collab_setup(key.p2, key.phi_p2, key.g,
+                                  batch=cfg.gold_batch, device=dev)
+        clock.lap(PHASE_INIT)
 
     # --- Data security sharing phase -------------------------------------
-    counter.phase = PHASE_SHARE
-    for k, edge in enumerate(edges):
-        q_alpha = np.asarray(gamma1(u3s[k], spec))
-        if monitor.enabled:
-            monitor.observe_quant(-1, *gamma1_saturation(q_alpha, spec))
-        c_alpha = box.encrypt(q_alpha)
-        traffic["master->edge"] += box.ct_bytes(Nk)
-        edge.store_shared(c_alpha)
-    clock.lap(PHASE_SHARE)
+    with trace.span("driver.share"):
+        counter.phase = PHASE_SHARE
+        for k, edge in enumerate(edges):
+            q_alpha = np.asarray(gamma1(u3s[k], spec))
+            if monitor.enabled:
+                monitor.observe_quant(-1, *gamma1_saturation(q_alpha, spec))
+            c_alpha = box.encrypt(q_alpha)
+            traffic["master->edge"] += box.ct_bytes(Nk)
+            edge.store_shared(c_alpha)
+        clock.lap(PHASE_SHARE)
 
     # --- Parallel privacy-computing phase ---------------------------------
     counter.phase = PHASE_ITERATE
@@ -530,112 +542,121 @@ def run_protocol(A: np.ndarray, y: np.ndarray, cfg: ProtocolConfig,
     recycled = 0
 
     for t in range(cfg.iters):
-        if churn is not None:
-            # membership events at the top of the round, before the
-            # re-shares, in schedule order (this fixes the rng stream)
-            for ev in churn.events_at(t):
-                k = ev.edge
-                last_q[k] = last_R[k] = None
-                if ev.kind == "leave":
-                    # graceful handoff: the block freezes (column split)
-                    # or folds out of the consensus aggregate (row split)
-                    active.discard(k)
-                    st.aux["churn_active"][k] = False
-                    churn_counts["leaves"] += 1
-                    continue
-                # rejoin: full init-phase re-run and a fresh Γ₁(u3_k)
-                active.add(k)
-                st.aux["churn_active"][k] = True
-                churn_counts["rejoins"] += 1
-                Qk, mu, scale = wl.edge_setup(st, k)
-                traffic["master->edge"] += Qk.nbytes
-                Bk = edges[k].init_phase(Qk, mu, scale)
-                traffic["edge->master"] += Bk.nbytes
-                C_rowsums[k] = (Bk * scale) @ np.ones(Nk)
-                Bks[k] = Bk
-                u3s[k] = wl.share_vector(st, k, Bk)
-                c_alpha = box.encrypt(np.asarray(gamma1(u3s[k], spec)))
-                traffic["master->edge"] += box.ct_bytes(Nk)
-                edges[k].store_shared(c_alpha)
-        if wl.streaming:
-            # re-run the encrypted share phase for the edges whose u3
-            # moved; absent edges miss the refresh (a rejoin re-runs all)
-            for k in wl.reshare(st, t):
+        with trace.span("driver.round", f"round={t}"):
+            if churn is not None:
+                # membership events at the top of the round, before the
+                # re-shares, in schedule order (this fixes the rng stream)
+                for ev in churn.events_at(t):
+                    k = ev.edge
+                    last_q[k] = last_R[k] = None
+                    if ev.kind == "leave":
+                        # graceful handoff: the block freezes (column
+                        # split) or folds out of the consensus aggregate
+                        # (row split)
+                        active.discard(k)
+                        st.aux["churn_active"][k] = False
+                        churn_counts["leaves"] += 1
+                        continue
+                    # rejoin: full init-phase re-run and a fresh Γ₁(u3_k)
+                    active.add(k)
+                    st.aux["churn_active"][k] = True
+                    churn_counts["rejoins"] += 1
+                    Qk, mu, scale = wl.edge_setup(st, k)
+                    traffic["master->edge"] += Qk.nbytes
+                    Bk = edges[k].init_phase(Qk, mu, scale)
+                    traffic["edge->master"] += Bk.nbytes
+                    C_rowsums[k] = (Bk * scale) @ np.ones(Nk)
+                    Bks[k] = Bk
+                    u3s[k] = wl.share_vector(st, k, Bk)
+                    c_alpha = box.encrypt(np.asarray(gamma1(u3s[k], spec)))
+                    traffic["master->edge"] += box.ct_bytes(Nk)
+                    edges[k].store_shared(c_alpha)
+            if wl.streaming:
+                # re-run the encrypted share phase for the edges whose u3
+                # moved; absent edges miss the refresh (a rejoin re-runs all)
+                for k in wl.reshare(st, t):
+                    if k not in active:
+                        continue
+                    u3s[k] = wl.share_vector(st, k, Bks[k])
+                    c_alpha = box.encrypt(np.asarray(gamma1(u3s[k], spec)))
+                    traffic["master->edge"] += box.ct_bytes(Nk)
+                    edges[k].store_shared(c_alpha)
+                    reshare_events += 1
+                    last_q[k] = last_R[k] = None
+            x_new = np.zeros(N_state)
+            for k, edge in enumerate(edges):
+                sl = slice(k * Nk, (k + 1) * Nk)
                 if k not in active:
+                    x_new[sl] = st.x_prev[sl]      # frozen handoff block
                     continue
-                u3s[k] = wl.share_vector(st, k, Bks[k])
-                c_alpha = box.encrypt(np.asarray(gamma1(u3s[k], spec)))
-                traffic["master->edge"] += box.ct_bytes(Nk)
-                edges[k].store_shared(c_alpha)
-                reshare_events += 1
-                last_q[k] = last_R[k] = None
-        x_new = np.zeros(N_state)
-        for k, edge in enumerate(edges):
-            sl = slice(k * Nk, (k + 1) * Nk)
-            if k not in active:
-                x_new[sl] = st.x_prev[sl]      # frozen handoff block
-                continue
-            u1, u2 = wl.iter_inputs(st, k)
-            qz = np.asarray(gamma2(u1, spec))
-            qv = np.asarray(gamma2(u2, spec))
-            if monitor.enabled:
-                cz_n, tz_n = gamma2_saturation(qz, spec)
-                cv_n, tv_n = gamma2_saturation(qv, spec)
-                monitor.observe_quant(t, cz_n + cv_n, tz_n + tv_n)
-            w_sum = float(np.sum(u1 + u2))
-            if cfg.recycle and last_q[k] is not None \
-                    and int(np.max(np.abs(qz - last_q[k][0]))) \
-                    <= cfg.recycle_tol \
-                    and int(np.max(np.abs(qv - last_q[k][1]))) \
-                    <= cfg.recycle_tol:
-                # recycled update (Zhang 1910.04581): the quantized inputs
-                # match the edge's last encrypted round, so its chain
-                # would decrypt to the cached R — skip enc/step/dec
-                counter.bump("recycled", Nk)
-                recycled += 1
-                R = last_R[k]
-            else:
-                cz = box.encrypt(qz)
-                cv = box.encrypt(qv)
-                traffic["master->edge"] += 2 * box.ct_bytes(Nk)
-                x_hat = edge.private_step(cz, cv, box)
-                traffic["edge->master"] += box.ct_bytes(Nk)
-                if cfg.collaborative and key is not None \
-                        and cfg.cipher == "gold":
-                    # decryption assist: the edge ships (x-hat)' mod p^2;
-                    # the reference discards it too, but its ops and
-                    # bytes are part of the report
-                    _ = edge.reduce_p2(x_hat)
-                    traffic["edge->master"] += \
-                        (key.p2.bit_length() + 7) // 8 * Nk
-                R = box.decrypt(x_hat).astype(np.float64)
-                if cfg.recycle:
-                    last_q[k] = (qz, qv)
-                    last_R[k] = R
-            x_new[sl] = np.asarray(dequantize_theorem1(
-                R, C_rowsums[k], w_sum, Nk, spec))
-        if monitor.enabled:
-            # iterate step vs the (t-1) iterate, before the global update
-            monitor.observe_round(t, float(np.mean((x_new - st.x_prev) ** 2)))
-        # master updates (10b)/(10c) with the (t-1) iterate — Jacobi order
-        wl.global_update(st, x_new)
-        history[t] = x_new
-        clock.lap(PHASE_ITERATE)
+                with trace.span("driver.edge", f"round={t},edge={k}"):
+                    u1, u2 = wl.iter_inputs(st, k)
+                    qz = np.asarray(gamma2(u1, spec))
+                    qv = np.asarray(gamma2(u2, spec))
+                    if monitor.enabled:
+                        cz_n, tz_n = gamma2_saturation(qz, spec)
+                        cv_n, tv_n = gamma2_saturation(qv, spec)
+                        monitor.observe_quant(t, cz_n + cv_n, tz_n + tv_n)
+                    w_sum = float(np.sum(u1 + u2))
+                    if cfg.recycle and last_q[k] is not None \
+                            and int(np.max(np.abs(qz - last_q[k][0]))) \
+                            <= cfg.recycle_tol \
+                            and int(np.max(np.abs(qv - last_q[k][1]))) \
+                            <= cfg.recycle_tol:
+                        # recycled update (Zhang 1910.04581): the
+                        # quantized inputs match the edge's last encrypted
+                        # round, so its chain would decrypt to the cached R
+                        # — skip enc/step/dec
+                        counter.bump("recycled", Nk)
+                        recycled += 1
+                        R = last_R[k]
+                    else:
+                        cz = box.encrypt(qz)
+                        cv = box.encrypt(qv)
+                        traffic["master->edge"] += 2 * box.ct_bytes(Nk)
+                        x_hat = edge.private_step(cz, cv, box)
+                        traffic["edge->master"] += box.ct_bytes(Nk)
+                        if cfg.collaborative and key is not None \
+                                and cfg.cipher == "gold":
+                            # decryption assist: the edge ships (x-hat)'
+                            # mod p^2; the reference discards it too, but
+                            # its ops and bytes are part of the report
+                            _ = edge.reduce_p2(x_hat)
+                            traffic["edge->master"] += \
+                                (key.p2.bit_length() + 7) // 8 * Nk
+                        R = box.decrypt(x_hat).astype(np.float64)
+                        if cfg.recycle:
+                            last_q[k] = (qz, qv)
+                            last_R[k] = R
+                    x_new[sl] = np.asarray(dequantize_theorem1(
+                        R, C_rowsums[k], w_sum, Nk, spec))
+            with trace.span("driver.master", f"round={t}"):
+                if monitor.enabled:
+                    # iterate step vs the (t-1) iterate, before the update
+                    monitor.observe_round(
+                        t, float(np.mean((x_new - st.x_prev) ** 2)))
+                # master updates (10b)/(10c) with the (t-1) iterate —
+                # Jacobi order
+                wl.global_update(st, x_new)
+                history[t] = x_new
+            clock.lap(PHASE_ITERATE)
 
-    if agg_ctx is not None:
-        traffic["edge->master"] += agg_ctx.traffic_bytes
-    stats = obs_metrics.build_run_report(
-        driver="protocol", ops=counter.as_dict(), traffic=traffic,
-        key_bits=None if key is None else key.n.bit_length(),
-        cipher=cfg.cipher, workload=wl.name,
-        reshare_events=reshare_events, history=history,
-        churn={**churn_counts, "recycled": recycled})
-    if monitor.enabled:
-        stats["health"] = monitor.health_section()
-    # run-history ledger: one compact record per completed run (no-op
-    # when REPRO_LEDGER is off; never raises)
-    ledger_mod.record_run(stats, cfg=cfg, mode="sync", device=dev)
+    with trace.span("driver.report"):
+        if agg_ctx is not None:
+            traffic["edge->master"] += agg_ctx.traffic_bytes
+        stats = obs_metrics.build_run_report(
+            driver="protocol", ops=counter.as_dict(), traffic=traffic,
+            key_bits=None if key is None else key.n.bit_length(),
+            cipher=cfg.cipher, workload=wl.name,
+            reshare_events=reshare_events, history=history,
+            churn={**churn_counts, "recycled": recycled})
+        if monitor.enabled:
+            stats["health"] = monitor.health_section()
+        # run-history ledger: one compact record per completed run (no-op
+        # when REPRO_LEDGER is off; never raises)
+        ledger_mod.record_run(stats, cfg=cfg, mode="sync", device=dev)
     stats["seconds"] = clock.seconds
+    stats["waits"] = obs_metrics.PROCESS.since(waits0)
     return ProtocolResult(x=st.x_prev, history=history, stats=stats,
                           stale_events=0)
 
@@ -651,7 +672,8 @@ class _PhaseClock:
 
     def lap(self, phase: str) -> None:
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            with trace.wait("wait.lap"):
+                torch.cuda.synchronize(self.device)
         now = time.perf_counter()
         dt, self._t = now - self._t, now
         self.seconds[phase] = self.seconds.get(phase, 0.0) + dt

@@ -27,6 +27,7 @@ import threading
 import time
 from pathlib import Path
 
+from ..obs import trace
 from . import geometry
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -162,18 +163,19 @@ def launcher(name: str):
         return fn
     with _LOCK:
         if name not in _FUNCS:
-            t0 = time.perf_counter()
-            built = build_all()
-            from ..obs.metrics import record_profile
-            record_profile("kernel_build", kernels=sorted(built),
-                           seconds=time.perf_counter() - t0)
-            libs = {src: ctypes.CDLL(str(library_path(src)))
-                    for src in SOURCES}
-            for kname, (src, sym, argtypes) in KERNELS.items():
-                fn = getattr(libs[src], sym)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-                _FUNCS[kname] = fn
+            with trace.span("kernels.build"):
+                t0 = time.perf_counter()
+                built = build_all()
+                from ..obs.metrics import record_profile
+                record_profile("kernel_build", kernels=sorted(built),
+                               seconds=time.perf_counter() - t0)
+                libs = {src: ctypes.CDLL(str(library_path(src)))
+                        for src in SOURCES}
+                for kname, (src, sym, argtypes) in KERNELS.items():
+                    fn = getattr(libs[src], sym)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                    _FUNCS[kname] = fn
     return _FUNCS[name]
 
 

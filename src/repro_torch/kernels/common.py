@@ -25,6 +25,7 @@ import torch
 import torch.utils.weak
 
 from ..core import bigint as bi
+from ..obs import trace
 
 MulFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -208,7 +209,10 @@ class RowsModulus:
     def __post_init__(self):
         idx = self.midx
         if _noted(idx) is None:
-            host = idx.detach().cpu()
+            host = idx.detach()
+            if host.is_cuda:
+                with trace.wait("wait.rows_modulus"):
+                    host = host.cpu()
             lo, hi = (int(host.min()), int(host.max())) if host.numel() \
                 else (0, -1)
             note_index_range(idx, lo, hi)

@@ -6,8 +6,10 @@ through :func:`build_run_report`; :func:`report_core`,
 :func:`reports_equal_modulo_timing`, :func:`diff_reports` and
 :func:`validate_report_core` are the conformance surface;
 :func:`summary` / :class:`Histogram` the latency-distribution helpers
-(the coalescing queue's launch walls) and :class:`Registry` a per-run
-set of named counters, gauges and histograms.
+(the coalescing queue's launch walls) and :class:`Registry` a set of
+named counters, gauges and histograms; :data:`PROCESS` is the process's
+own, always on, which counts the waits on the card by site
+(``obs.trace.wait``).
 """
 from __future__ import annotations
 
@@ -74,6 +76,18 @@ class Registry:
                 "gauges": dict(sorted(self.gauges.items())),
                 "histograms": {k: h.summary()
                                for k, h in sorted(self.hists.items())}}
+
+    def since(self, before: dict) -> dict:
+        """The counters that grew since ``before`` (an earlier
+        ``dict(counters)``), by how much."""
+        return {k: v - before.get(k, 0)
+                for k, v in sorted(self.counters.items())
+                if v > before.get(k, 0)}
+
+
+#: the process's counters: ``wait.<site>`` is the number of times the
+#: program blocked on the card at that site (``obs.trace.WAITS``)
+PROCESS = Registry()
 
 
 _profile_events: list[dict] = []

@@ -149,7 +149,8 @@ class CoalesceQueue:
     def _clock(self) -> float:
         """Host seconds once the box's device has finished its work."""
         if self._cuda is not None:
-            torch.cuda.synchronize(self._cuda)
+            with trace_mod.wait("wait.coalesce_clock"):
+                torch.cuda.synchronize(self._cuda)
         return time.perf_counter()
 
     # -- submission ------------------------------------------------------
@@ -246,7 +247,8 @@ class CoalesceQueue:
                                      (self._clock() - t0) * 1e3,
                                      fused=False)
                 self.launches += 1
-                e.cb(res)
+                with trace_mod.span("coalescer.callbacks"):
+                    e.cb(res)
             return
         self.coalesced_ops += len(entries)
         self.launches += 1
@@ -254,8 +256,9 @@ class CoalesceQueue:
         results = self._run_group(op, entries)
         self._observe_launch(op, shape, entries,
                              (self._clock() - t0) * 1e3, fused=True)
-        for e, res in zip(entries, results):
-            e.cb(res)
+        with trace_mod.span("coalescer.callbacks"):
+            for e, res in zip(entries, results):
+                e.cb(res)
 
     def _observe_launch(self, op: str, shape: tuple, entries: list[_Entry],
                         wall_ms: float, fused: bool) -> None:
@@ -302,23 +305,22 @@ class CoalesceQueue:
         raise ValueError(op)
 
     def _run_group(self, op: str, entries: list[_Entry]) -> list:
-        if op == "enc":
-            sizes = [np.asarray(e.args[0]).size for e in entries]
-            big = self.box.encrypt(np.concatenate(
-                [np.asarray(e.args[0]).reshape(-1) for e in entries]))
-            return _split(big, sizes)
-        if op == "add":
-            sizes = [self._size(e.args[0]) for e in entries]
-            big = self.box.add(_cat([e.args[0] for e in entries]),
-                               _cat([e.args[1] for e in entries]))
-            return _split(big, sizes)
-        if op == "dec":
-            sizes = [self._size(e.args[0]) for e in entries]
-            big = self.box.decrypt(_cat([e.args[0] for e in entries]))
-            return _split(big, sizes)
         if op == "matvec":
             return self._run_matvec_group(entries)
-        raise ValueError(op)
+        if op not in ("enc", "add", "dec"):
+            raise ValueError(op)
+        with trace_mod.span("coalescer.pack"):
+            if op == "enc":
+                sizes = [np.asarray(e.args[0]).size for e in entries]
+                args = (np.concatenate([np.asarray(e.args[0]).reshape(-1)
+                                        for e in entries]),)
+            else:
+                sizes = [self._size(e.args[0]) for e in entries]
+                args = tuple(_cat([e.args[i] for e in entries])
+                             for i in range(len(entries[0].args)))
+        big = self._run_one(op, args)
+        with trace_mod.span("coalescer.demux"):
+            return _split(big, sizes)
 
     def _matvec_fuses(self, entries: list[_Entry]) -> bool:
         name = getattr(self.box, "name", "")
@@ -336,15 +338,17 @@ class CoalesceQueue:
         name = getattr(self.box, "name", "")
         if not self._matvec_fuses(entries):
             return [self.box.matvec(e.args[0], e.args[1]) for e in entries]
-        Ks = np.stack([np.asarray(e.args[0]) for e in entries])
+        with trace_mod.span("coalescer.pack"):
+            Ks = np.stack([np.asarray(e.args[0]) for e in entries])
         B, M, N = Ks.shape
         if self.counter is not None:  # same totals box.matvec would bump
             self.counter.bump("modexp", B * M * N)
             self.counter.bump("mulmod", B * M * (N - 1))
         if name == "gold":
             # one fused batched-CRT launch over every edge's (M, N) block
-            return pbatch.matvec_many(self.box.batch_key(),
-                                      Ks.astype(object),
+            with trace_mod.span("paillier.exps"):
+                Ks = Ks.astype(object)
+            return pbatch.matvec_many(self.box.batch_key(), Ks,
                                       [e.args[1] for e in entries])
         # one fused launch for all same-shaped (M, N) blocks
         cs = torch.stack([e.args[1] for e in entries])
@@ -458,16 +462,20 @@ class CrossTenantCoalescer:
     def _execute(self) -> None:
         self._posted = False
         pending, self._pending = self._pending, []
-        clusters: dict[tuple, list] = {}
-        for tq, op, shape, entries in pending:
-            sig = fuse_sig(tq.box, op)
-            clusters.setdefault((op, shape, sig), []).append((tq, entries))
+        with trace_mod.span("coalescer.group"):
+            clusters: dict[tuple, list] = {}
+            for tq, op, shape, entries in pending:
+                sig = fuse_sig(tq.box, op)
+                clusters.setdefault((op, shape, sig), []).append(
+                    (tq, entries))
         # sorted by repr: within one tenant, (op, shape, sig) order equals
         # the solo flush's (op, shape) order — sig is a function of
         # (box, op), so two same-tenant groups never differ only in sig
         for (op, shape, sig), parts in sorted(clusters.items(),
                                               key=lambda kv: repr(kv[0])):
-            if sig is None or not self._rows_ok(op, parts):
+            with trace_mod.span("coalescer.group"):
+                rows = sig is not None and self._rows_ok(op, parts)
+            if not rows:
                 for tq, entries in parts:
                     before = tq.launches
                     tq._exec_group(op, shape, entries)
@@ -488,31 +496,31 @@ class CrossTenantCoalescer:
         total = sum(len(es) for _, es in parts)
         dev = parts[0][0].box.device
         t0 = parts[0][0]._clock()
+        with trace_mod.span("coalescer.pack"):
+            if op == "enc":
+                flats = [[int(v) for e in entries
+                          for v in np.asarray(e.args[0]).reshape(-1)]
+                         for _, entries in parts]
+            elif op == "matvec":
+                items = [(tq.box.key, np.stack([np.asarray(e.args[0])
+                                                for e in entries]),
+                          [e.args[1] for e in entries])
+                         for tq, entries in parts]
+            else:   # dec, add: each tenant's operands joined
+                items = [(tq.box.key,
+                          *(_cat([e.args[i] for e in entries])
+                            for i in range(len(entries[0].args))))
+                         for tq, entries in parts]
         if op == "enc":
-            items = []
-            for tq, entries in parts:
-                box = tq.box
-                flat = [int(v) for e in entries
-                        for v in np.asarray(e.args[0]).reshape(-1)]
-                # blinding draws: tenant's own rng, solo (entry) order
-                rs = [gold.rand_r(box.key, box.rng) for _ in flat]
-                items.append((box.key, flat, rs))
-            outs = pbatch.enc_rows(items, device=dev)
-        elif op == "dec":
-            outs = pbatch.dec_rows(
-                [(tq.box.key, _cat([e.args[0] for e in entries]))
-                 for tq, entries in parts], device=dev)
-        elif op == "add":
-            outs = pbatch.add_rows(
-                [(tq.box.key, _cat([e.args[0] for e in entries]),
-                  _cat([e.args[1] for e in entries]))
-                 for tq, entries in parts], device=dev)
-        else:   # matvec
-            outs = pbatch.matvec_rows(
-                [(tq.box.key, np.stack([np.asarray(e.args[0])
-                                        for e in entries]),
-                  [e.args[1] for e in entries])
-                 for tq, entries in parts], device=dev)
+            with trace_mod.span("coalescer.blind"):
+                # blinding draws: each tenant's own rng, solo (entry) order
+                items = [(box.key, flat,
+                          [gold.rand_r(box.key, box.rng) for _ in flat])
+                         for box, flat in zip((tq.box for tq, _ in parts),
+                                              flats)]
+        rows_op = {"enc": pbatch.enc_rows, "dec": pbatch.dec_rows,
+                   "add": pbatch.add_rows, "matvec": pbatch.matvec_rows}
+        outs = rows_op[op](items, device=dev)
         wall_ms = (parts[0][0]._clock() - t0) * 1e3
         for (tq, entries), out in zip(parts, outs):
             self._demux(tq, op, shape, entries, out, wall_ms, total)
@@ -538,6 +546,22 @@ class CrossTenantCoalescer:
                total: int) -> None:
         """Rebuild exactly the representation + telemetry the tenant's
         solo box call would have produced, then fire the callbacks."""
+        results = self._results(tq, op, shape, entries, out)
+        tq.launches += 1
+        if total > 1:
+            tq.coalesced_ops += len(entries)
+        tq._observe_launch(op, shape, entries, wall_ms,
+                           fused=total > 1 or len(entries) > 1)
+        with trace_mod.span("coalescer.callbacks"):
+            for e, res in zip(entries, results):
+                e.cb(res)
+
+    @staticmethod
+    @trace_mod.spanned("coalescer.demux")
+    def _results(tq: TenantQueue, op: str, shape: tuple,
+                 entries: list[_Entry], out) -> list:
+        """Each entry's result in the tenant's solo representation, with
+        the counter bumps the solo box call makes."""
         box = tq.box
 
         def cipher(limbs: torch.Tensor, resident: bool):
@@ -582,13 +606,7 @@ class CrossTenantCoalescer:
                 results = [cipher(rows, M * N >= box.batch_min
                                   and isinstance(e.args[1], CipherTensor))
                            for e, rows in zip(entries, out)]
-        tq.launches += 1
-        if total > 1:
-            tq.coalesced_ops += len(entries)
-        tq._observe_launch(op, shape, entries, wall_ms,
-                           fused=total > 1 or len(entries) > 1)
-        for e, res in zip(entries, results):
-            e.cb(res)
+        return results
 
     def metrics_section(self) -> dict:
         """Engine-level fusion telemetry (stats["serve"] feed)."""

@@ -102,6 +102,7 @@ class EdgeActor:
         self._share_round = -1   # newest re-share round stored so far
         self.alive = True        # fault-injection switch (churn "fail")
 
+    @trace_mod.spanned("driver.message")
     def on_message(self, msg: Message) -> None:
         rt = self.rt
         if not self.alive:
@@ -150,6 +151,7 @@ class EdgeActor:
         else:
             raise ValueError(f"edge got unexpected tag {msg.tag!r}")
 
+    @trace_mod.spanned("driver.callback")
     def _reply(self, t: int, x_hat) -> None:
         rt, cfg = self.rt, self.rt.cfg
         if cfg.latency_fn is not None:
@@ -222,6 +224,8 @@ class MasterActor:
         self.last_q: list = [None] * K   # last encrypted (qz, qv) pair
         self.last_R: list = [None] * K   # its decrypted integer chain
         self._q_rounds: dict[int, dict[int, tuple]] = {}
+        # the open wall-clock span of the phase or round (obs.trace.begin)
+        self._span = None
 
     # -- Initialization phase -------------------------------------------
     def start(self) -> None:
@@ -233,6 +237,7 @@ class MasterActor:
             if self.on_done is not None:
                 self.on_done()
             return
+        self._span = trace_mod.begin("driver.init", self._span_args())
         for k in range(cfg.K):
             if cfg.collaborative and rt.key is not None:
                 rt.transport.send(MASTER, edge_name(k), "collab",
@@ -242,6 +247,7 @@ class MasterActor:
             rt.transport.send(MASTER, edge_name(k), "init",
                               (Qk, mu, scale), nbytes=Qk.nbytes)
 
+    @trace_mod.spanned("driver.message")
     def on_message(self, msg: Message) -> None:
         if msg.tag == "init_ok":
             k, Bk = msg.payload
@@ -257,6 +263,7 @@ class MasterActor:
             if self._n_share == self.rt.cfg.K:
                 rt = self.rt
                 rt.clock.lap(protocol.PHASE_SHARE)
+                trace_mod.end(self._span)
                 if rt.tracer.enabled:
                     rt.tracer.add("phase:share", "phase", t=self._phase_t0,
                                   dur=rt.sched.now - self._phase_t0)
@@ -274,6 +281,8 @@ class MasterActor:
     def _share(self) -> None:
         rt = self.rt
         rt.clock.lap(protocol.PHASE_INIT)
+        trace_mod.end(self._span)
+        self._span = trace_mod.begin("driver.share", self._span_args())
         if rt.tracer.enabled:
             rt.tracer.add("phase:init", "phase", t=self._phase_t0,
                           dur=rt.sched.now - self._phase_t0)
@@ -347,8 +356,17 @@ class MasterActor:
                 rt.cq.submit("enc", (q_alpha,),
                              partial(self._reshare_ready, k, t))
 
+    def _span_args(self, t: int | None = None) -> str:
+        """A wall-clock span's args: the tenant (in an engine) and round."""
+        tenant = getattr(self.rt.cq, "tenant", None)
+        args = [] if tenant is None else [f"tenant={tenant}"]
+        if t is not None:
+            args.append(f"round={t}")
+        return ",".join(args)
+
     def _iterate(self, t: int) -> None:
         rt, cfg = self.rt, self.rt.cfg
+        self._span = trace_mod.begin("driver.round", self._span_args(t))
         self.t = t
         self.iter_start = rt.sched.now
         self.replies: dict[int, object] = {}
@@ -424,6 +442,7 @@ class MasterActor:
             rt.sched.after(cfg.deadline, partial(self._on_deadline, t),
                            label=f"deadline:{t}")
 
+    @trace_mod.spanned("driver.callback")
     def _enc_done(self, t: int, k: int, which: str, ct) -> None:
         # ciphertext pairs are keyed by the round that quantized them, so a
         # round closing (deadline) between submit and flush can neither mix
@@ -547,6 +566,7 @@ class MasterActor:
         if self._dec_target == 0:
             self._round_done()
 
+    @trace_mod.spanned("driver.callback")
     def _dec_done(self, k: int, w_sum: float, fresh: bool, R) -> None:
         rt, cfg = self.rt, self.rt.cfg
         sl = slice(k * rt.nk, (k + 1) * rt.nk)
@@ -573,16 +593,19 @@ class MasterActor:
             # the z-update aggregate of this round goes through secure
             # aggregation inside global_update below
             rt.tracer.add("secure_agg", "agg", t=rt.sched.now, round=self.t)
-        if rt.monitor.enabled:
-            # iterate step vs the (t-1) iterate, BEFORE the global update
-            # consumes it — the live convergence observable
-            rt.monitor.observe_round(self.t, float(np.mean(
-                (self._x_new - self.wst.x_prev) ** 2)))
-        # master updates (10b)/(10c) with the (t-1) iterate — Jacobi order
-        self.wl.global_update(self.wst, self._x_new)
-        self.history[self.t] = self._x_new
+        with trace_mod.span("driver.master", self._span_args(self.t)):
+            if rt.monitor.enabled:
+                # iterate step vs the (t-1) iterate, BEFORE the global
+                # update consumes it — the live convergence observable
+                rt.monitor.observe_round(self.t, float(np.mean(
+                    (self._x_new - self.wst.x_prev) ** 2)))
+            # master updates (10b)/(10c) with the (t-1) iterate — Jacobi
+            # order
+            self.wl.global_update(self.wst, self._x_new)
+            self.history[self.t] = self._x_new
         self.iter_times.append(rt.sched.now)
         rt.clock.lap(protocol.PHASE_ITERATE)
+        trace_mod.end(self._span)
         if rt.tracer.enabled:
             rt.tracer.add(f"round:{self.t}", "phase", t=self.iter_start,
                           dur=rt.sched.now - self.iter_start, round=self.t)
@@ -629,6 +652,8 @@ class _Runtime:
         self.monitor = monitor
         self.edge_actors: list = []   # filled by run_on_runtime (the
                                       # fault-injection handle for fails)
+        # the process's waits on the card so far (obs.metrics.PROCESS)
+        self.waits0 = dict(obs_metrics.PROCESS.counters)
 
 
 def auto_hold_ticks(topo: Topology, transport: Transport, tick_s: float,
@@ -837,6 +862,7 @@ def run_on_runtime(A: np.ndarray, y: np.ndarray,
     return collect_result(rt, master, wl, mode)
 
 
+@trace_mod.spanned("driver.report")
 def collect_result(rt, master, wl, mode, *, driver: str = "runtime",
                    history: np.ndarray | None = None,
                    ledger_extra: dict | None = None,
@@ -882,6 +908,9 @@ def collect_result(rt, master, wl, mode, *, driver: str = "runtime",
         # "profile" (process-level events since the previous report) is
         # filled by build_run_report, which drains the global log
         "compile_cache": compile_cache.stats(),
+        # the process's waits on the card since the runtime was built (in
+        # an engine, every tenant's together: fused launches wait once)
+        "waits": obs_metrics.PROCESS.since(rt.waits0),
     }
     if key_bits is not None:
         # achieved-vs-peak limb-ops on the virtual clock: utilization of
