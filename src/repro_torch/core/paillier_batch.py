@@ -38,6 +38,7 @@ from . import paillier as gold
 from . import paillier_vec as pv
 from .cipher_tensor import CipherTensor
 from ..kernels import ops
+from ..obs import metrics as obs_metrics
 from ..obs import trace
 
 # Below this batch size the per-launch overhead dominates and callers keep
@@ -95,6 +96,31 @@ def _norm_exps(exps, batch: int) -> list[int]:
     if len(exps) != batch:
         raise ValueError(f"{len(exps)} exponents for a batch of {batch}")
     return exps
+
+
+def exact_array(x) -> np.ndarray:
+    """``x`` as an array whose every integer is exact: an integer array as
+    it is, anything else as objects (numpy infers floats for a list that
+    mixes ints past 2^63 with negative ones)."""
+    a = np.asarray(x)
+    return a if a.dtype.kind in "iu" else np.asarray(x, dtype=object)
+
+
+def _int64_exps(exps):
+    """``(k64, lo, top)``: the exponents as a flat int64 array with their
+    least and greatest entry, or ``None`` where one is wider than int64.
+    Anything but a signed-integer array goes entry by entry (a list or an
+    object array of Python ints, an unsigned array)."""
+    flat = exact_array(exps).reshape(-1)
+    if flat.dtype.kind != "i":
+        flat = flat.astype(object, copy=False)
+    try:
+        k64 = flat.astype(np.int64)
+    except OverflowError:
+        return None
+    if not k64.size:
+        return k64, 0, 0
+    return k64, int(k64.min()), int(k64.max())
 
 
 class Shards(list):
@@ -175,14 +201,31 @@ def _halves(bk: BatchKey, bp, bq, exps, scalar_e, fixed: bool,
     """x' = bp^e mod p^2, x'' = bq^e mod q^2, recombined mod n^2 (and
     ``then`` applied), split over the cards in whole ``group``s of rows
     (:func:`_run_split`).  Exponent limbs size to the whole batch's
-    maximum after the phi reduction."""
+    maximum after the phi reduction.
+
+    Per-element ``exps`` (a sequence or an array of ints) that fit int64
+    and lie in [0, min(phi(p^2), phi(q^2))) are their own residues: they
+    go up once and split into limbs on the device, one tensor for both
+    halves.  Any other list is reduced and packed on the host.
+    ``obs.metrics.PROCESS`` counts the exponents of each path
+    (``exps.int64``, ``exps.reduced``)."""
     key = bk.key
     body = _crt_body(bk, scalar_e, fixed, then)
     if fixed and scalar_e is not None:
         return _run_split(body, bp, bq, group=group)
+    with trace.span("paillier.exps"):
+        fit = _int64_exps(exps)
+    if fit is not None and 0 <= fit[1] and fit[2] < min(key.phi_p2,
+                                                         key.phi_q2):
+        k64, _, top = fit
+        obs_metrics.PROCESS.count("exps.int64", k64.size)
+        e = pv.int64_to_limbs(bi.to_device(k64, bk.device),
+                              bi.n_limbs_for(top))
+        return _run_split(body, bp, e, bq, e, group=group)
+    obs_metrics.PROCESS.count("exps.reduced", len(exps))
     with trace.span("paillier.exps_phi"):
-        ep = [e % key.phi_p2 for e in exps]
-        eq = [e % key.phi_q2 for e in exps]
+        ep = [int(e) % key.phi_p2 for e in exps]
+        eq = [int(e) % key.phi_q2 for e in exps]
         le = max(1, max(bi.n_limbs_for(e) for e in ep + eq))
     return _run_split(body, bp, _limbs(bk, ep, le), bq, _limbs(bk, eq, le),
                       group=group)
@@ -345,11 +388,12 @@ def matvec_many(bk: BatchKey, Ks, cs_list: Sequence) -> list:
     launch per half space, then one product-tree launch
     (``paillier_vec.mul_tree``) reduces the rows mod n^2.  Limb-resident
     in (every entry a CipherTensor) gives CipherTensor rows out; int
-    sequences keep int-in/int-out.  Negative exponents force the
-    materialized general path.
+    sequences keep int-in/int-out.  ``Ks`` whose entries all fit int64
+    stays int64 up to the device (:func:`_halves`).  Negative exponents
+    force the materialized general path.
     """
     key, vk = bk.key, bk.vk
-    Ks = np.asarray(Ks, dtype=object)
+    Ks = exact_array(Ks)
     B, M, N = Ks.shape
     if len(cs_list) != B:
         raise ValueError(f"{len(cs_list)} ciphertext vectors for B={B}")
@@ -359,9 +403,9 @@ def matvec_many(bk: BatchKey, Ks, cs_list: Sequence) -> list:
     for b, row in enumerate(cs_list):
         if len(row) != N:
             raise ValueError(f"ciphertext vector {b} has {len(row)} != {N}")
-    exps = _norm_exps(Ks.reshape(-1), B * M * N)
+    exps = Ks.reshape(-1)
     with trace.span("paillier.exps_sign"):
-        negative = any(e < 0 for e in exps)
+        negative = bool(exps.size) and exps.min() < 0
     L2 = vk.pack_n2.L16
 
     def tree(powed):   # (rows * N, L2) -> (rows, L2)
@@ -403,9 +447,8 @@ def matvec_many(bk: BatchKey, Ks, cs_list: Sequence) -> list:
 def matvec_vec(bk: BatchKey, K, cs):
     """Single homomorphic matvec (M, N) x (N,) -> (M,), batched kernels;
     a :class:`CipherTensor` in gives one out."""
-    K = np.asarray(K, dtype=object)
     cs = cs if isinstance(cs, CipherTensor) else list(cs)
-    return matvec_many(bk, K[None], [cs])[0]
+    return matvec_many(bk, exact_array(K)[None], [cs])[0]
 
 
 def warmup(bk: BatchKey, shapes: Sequence) -> dict:
@@ -425,7 +468,7 @@ def warmup(bk: BatchKey, shapes: Sequence) -> dict:
                 continue
             ones = CipherTensor.from_ints(bk, [1] * N)
             for val in (3, 1 << 17):   # 1- and 2-limb exponent widths
-                matvec_many(bk, np.full((B, M, N), val, dtype=object),
+                matvec_many(bk, np.full((B, M, N), val, dtype=np.int64),
                             [ones] * B)
                 calls += 1
         else:
@@ -578,15 +621,13 @@ def _matvec_exps(blocks: list, dev: torch.device) -> torch.Tensor:
     ``paillier_vec.int64_to_limbs``, wider ints packed on the host."""
     with trace.span("paillier.exps"):
         flat = np.concatenate([np.asarray(K).reshape(-1) for K in blocks])
-        try:
-            k64 = flat.astype(np.int64)
-        except OverflowError:
+        fit = _int64_exps(flat)
+        if fit is None:
             k64, ints = None, [int(v) for v in flat]
             lo, le = min(ints), max(bi.n_limbs_for(v) for v in ints)
         else:
-            lo = int(k64.min()) if k64.size else 0
-            top = int(k64.max()) if k64.size else 0
-            le = max(1, -(-top.bit_length() // bi.LIMB_BITS))
+            k64, lo, top = fit
+            le = bi.n_limbs_for(top)
     if lo < 0:
         raise ValueError("matvec_rows requires non-negative exponents")
     if k64 is not None:

@@ -151,18 +151,17 @@ class GoldBox:
         return [(a * b) % self.key.n2 for a, b in zip(c1, c2)]
 
     def matvec(self, K: np.ndarray, c):
-        with trace.span("paillier.exps"):
-            Km = np.asarray(K, dtype=object)
-        M, N = Km.shape
+        K = pb.exact_array(K)
+        M, N = K.shape
         self.counter.bump("modexp", M * N)
         self.counter.bump("mulmod", M * (N - 1))
         if self.batch and self.crt and M * N >= self.batch_min:
-            return pb.matvec_vec(self.batch_key(), Km, c)
+            return pb.matvec_vec(self.batch_key(), K, c)
         out = []
         for i in range(M):
             acc = 1
             for j in range(N):
-                acc = (acc * pow(c[j], int(Km[i, j]), self.key.n2)) % self.key.n2
+                acc = (acc * pow(c[j], int(K[i, j]), self.key.n2)) % self.key.n2
             out.append(acc)
         return out
 
@@ -451,9 +450,11 @@ def run_protocol(A: np.ndarray, y: np.ndarray, cfg: ProtocolConfig,
     watchers (``stats["health"]``, outside the report core).
     ``stats["seconds"]`` (outside the core too) holds the wall seconds
     per phase and per round, ``stats["waits"]`` the times the process
-    blocked on the card while the run was open, by site
-    (``obs.metrics.PROCESS``).  ``deadline`` mode and ``cipher="auto"`` run
-    on the event-driven runtime (``runtime.runner.run_on_runtime``).
+    blocked on the card while the run was open, by site, and
+    ``stats["exps"]`` the batched ModExp's per-element exponents by the
+    path the host took, where it took any (``obs.metrics.PROCESS``).
+    ``deadline`` mode and ``cipher="auto"`` run on the event-driven
+    runtime (``runtime.runner.run_on_runtime``).
     """
     if cfg.deadline is not None or cfg.cipher == "auto":
         # straggler/deadline semantics and adaptive dispatch live in the
@@ -656,7 +657,8 @@ def run_protocol(A: np.ndarray, y: np.ndarray, cfg: ProtocolConfig,
         # when REPRO_LEDGER is off; never raises)
         ledger_mod.record_run(stats, cfg=cfg, mode="sync", device=dev)
     stats["seconds"] = clock.seconds
-    stats["waits"] = obs_metrics.PROCESS.since(waits0)
+    stats["waits"] = obs_metrics.PROCESS.since(waits0, "wait.")
+    stats["exps"] = obs_metrics.PROCESS.since(waits0, "exps.")
     return ProtocolResult(x=st.x_prev, history=history, stats=stats,
                           stale_events=0)
 

@@ -77,16 +77,19 @@ class Registry:
                 "histograms": {k: h.summary()
                                for k, h in sorted(self.hists.items())}}
 
-    def since(self, before: dict) -> dict:
-        """The counters that grew since ``before`` (an earlier
-        ``dict(counters)``), by how much."""
+    def since(self, before: dict, prefix: str = "") -> dict:
+        """The counters named ``prefix...`` that grew since ``before`` (an
+        earlier ``dict(counters)``), by how much."""
         return {k: v - before.get(k, 0)
                 for k, v in sorted(self.counters.items())
-                if v > before.get(k, 0)}
+                if k.startswith(prefix) and v > before.get(k, 0)}
 
 
 #: the process's counters: ``wait.<site>`` is the number of times the
-#: program blocked on the card at that site (``obs.trace.WAITS``)
+#: program blocked on the card at that site (``obs.trace.WAITS``);
+#: ``exps.int64`` and ``exps.reduced`` the per-element exponents of the
+#: batched CRT ModExp uploaded as int64 and split into limbs on the
+#: device, or reduced mod phi(p^2) and phi(q^2) and packed on the host
 PROCESS = Registry()
 
 

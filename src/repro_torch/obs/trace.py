@@ -173,9 +173,9 @@ SPANS = (
     "coalescer.demux",      # results split back into each entry's form
     "coalescer.callbacks",  # the entries' callbacks fired
     # Paillier batch: Python-int work beside the limb kernels
-    "paillier.exps",        # exponents as Python ints, object arrays
+    "paillier.exps",        # exponents as int64 (range) or Python ints
     "paillier.exps_sign",   # the exponents' sign scan, bases inverted
-    "paillier.exps_phi",    # exponents mod phi(p^2), phi(q^2); limb sizing
+    "paillier.exps_phi",    # ints mod phi(p^2), phi(q^2); limb sizing
     "paillier.residues",    # bases reduced mod p^2 and q^2 on the host
     "paillier.encode",      # plaintexts as ints, (1 + m n) mod n^2
     "paillier.pack",        # ints to limbs, and limbs to the device

@@ -346,8 +346,6 @@ class CoalesceQueue:
             self.counter.bump("mulmod", B * M * (N - 1))
         if name == "gold":
             # one fused batched-CRT launch over every edge's (M, N) block
-            with trace_mod.span("paillier.exps"):
-                Ks = Ks.astype(object)
             return pbatch.matvec_many(self.box.batch_key(), Ks,
                                       [e.args[1] for e in entries])
         # one fused launch for all same-shaped (M, N) blocks

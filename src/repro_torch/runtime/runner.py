@@ -652,7 +652,8 @@ class _Runtime:
         self.monitor = monitor
         self.edge_actors: list = []   # filled by run_on_runtime (the
                                       # fault-injection handle for fails)
-        # the process's waits on the card so far (obs.metrics.PROCESS)
+        # the process's counters so far: waits on the card, exponent
+        # paths (obs.metrics.PROCESS)
         self.waits0 = dict(obs_metrics.PROCESS.counters)
 
 
@@ -910,7 +911,9 @@ def collect_result(rt, master, wl, mode, *, driver: str = "runtime",
         "compile_cache": compile_cache.stats(),
         # the process's waits on the card since the runtime was built (in
         # an engine, every tenant's together: fused launches wait once)
-        "waits": obs_metrics.PROCESS.since(rt.waits0),
+        "waits": obs_metrics.PROCESS.since(rt.waits0, "wait."),
+        # the batched CRT ModExp's exponents by path, over the same span
+        "exps": obs_metrics.PROCESS.since(rt.waits0, "exps."),
     }
     if key_bits is not None:
         # achieved-vs-peak limb-ops on the virtual clock: utilization of

@@ -12,7 +12,8 @@
 * ``runtime.coalesce``: the queue's equivalences with direct box calls
   (plain and gold groups, holds, the hold horizon) against the
   reference's queue, ``c_matvec_many`` against per-edge ``c_matvec`` and
-  the reference's limbs, ``fuse_sig``.
+  the reference's limbs, the gold branch's fused int64 blocks against
+  per-entry ``box.matvec``, ``fuse_sig``.
 * ``launch.edge_sim --device cpu``: small plain and gold runs, the JSON
   summary equal to the reference CLI's; ``--trace`` writes a valid
   chrome trace.
@@ -25,6 +26,7 @@ Everything runs on the CPU (``device="cpu"``), integer work with zero
 tolerance; encrypted runs use 128-bit keys.
 """
 import json
+import math
 import random
 
 import jax.numpy as jnp
@@ -53,6 +55,7 @@ from repro_torch.core.quantization import QuantSpec
 from repro_torch.kernels import compile_cache
 from repro_torch.launch import edge_sim
 from repro_torch.obs import chrome_trace, ledger
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs.metrics import report_core
 from repro_torch.runtime import coalesce, dispatch, runner
 from repro_torch.runtime.scheduler import Scheduler
@@ -409,6 +412,38 @@ def test_c_matvec_many_matches_per_edge_matvec_and_reference():
                 acc = acc * pow(ints[j], int(Ks[b, i, j]), key.n2) % key.n2
             expect.append(acc)
         assert bi.to_ints(fused[b]) == expect
+
+
+def test_coalesce_gold_matvec_group_int64_equals_per_entry_matvec():
+    """The gold branch fuses stacked int64 blocks into one batched CRT
+    matvec that keeps them int64 to the kernels, and returns each entry
+    the ciphertexts of its own ``box.matvec`` and of ``pow``."""
+    key = gold.keygen(128, random.Random(0))
+    box = protocol.GoldBox(key, random.Random(1), counter=protocol.OpCounter(),
+                           batch_min=1, device="cpu")
+    rng = random.Random(3)
+    B, M, N = 3, 4, 5
+    Ks = [np.array([[rng.randrange(1 << 34) for _ in range(N)]
+                    for _ in range(M)], dtype=np.int64) for _ in range(B)]
+    cs = [box.encrypt(np.arange(N, dtype=np.int64) + 7 * b)
+          for b in range(B)]
+    sched = Scheduler()
+    cq = coalesce.CoalesceQueue(sched, box, counter=box.counter)
+    got = {}
+    before = dict(obs_metrics.PROCESS.counters)
+    for b in range(B):
+        cq.submit("matvec", (Ks[b], cs[b]),
+                  lambda r, b=b: got.setdefault(b, r))
+    sched.run()
+    assert cq.launches == 1 and cq.coalesced_ops == B
+    assert obs_metrics.PROCESS.since(before, "exps.") == \
+        {"exps.int64": B * M * N}
+    for b in range(B):
+        ints = cs[b].to_ints()
+        expect = [math.prod(pow(ints[j], int(Ks[b][i, j]), key.n2)
+                            for j in range(N)) % key.n2 for i in range(M)]
+        assert got[b].to_ints() == box.matvec(Ks[b], cs[b]).to_ints() \
+            == expect, b
 
 
 def test_fuse_sig_matches_reference():

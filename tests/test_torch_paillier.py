@@ -6,9 +6,12 @@ The same key (the reference's, carried over by ``convert``) and the same
 ``matvec_vec`` and ``dec_vec`` give the same ciphertext ints, leave the
 rng in the same state, round-trip the plaintexts and convert between
 ints and limbs only at phase boundaries.  Tolerance: none (exact
-integer arithmetic).
+integer arithmetic).  The ⊗-matvec's exponent paths (int64 straight to
+the device, or reduced mod phi on the host) give the scalar gold loop's
+ciphertexts.
 """
 import dataclasses
+import functools
 import math
 import random
 
@@ -23,6 +26,8 @@ from repro_torch.core import cipher_tensor as ctm
 from repro_torch.core import paillier as gold
 from repro_torch.core import paillier_batch as pb
 from repro_torch.core import paillier_vec as pv
+from repro_torch.core import protocol
+from repro_torch.obs import metrics as obs_metrics
 
 # small tensors: one intra-op thread avoids oversubscribing the cores that
 # the suite's parallel workers share
@@ -163,3 +168,110 @@ def test_empty_and_device_errors(keys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             pb.make_batch_key(key)
+
+
+# ---------------------------------------------------------------------------
+# The ⊗-matvec's exponents: int64 to the device, or reduced on the host
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _key(bits):
+    return gold.keygen(bits, random.Random(bits))
+
+
+def _exps_block(case, rng, shape):
+    """(key bits, exponent block, the PROCESS counter it must move)."""
+    def draw(bits):
+        return np.array([rng.randrange(1 << bits)
+                         for _ in range(math.prod(shape))],
+                        dtype=np.int64).reshape(shape)
+    if case == "int64_1_limb":
+        return 128, draw(16), "exps.int64"
+    if case == "int64_3_limbs":
+        return 128, draw(40), "exps.int64"
+    if case == "object_fits_int64":
+        return 128, draw(62).astype(object), "exps.int64"
+    if case == "object_wider_than_int64":
+        K = draw(40).astype(object)
+        K.flat[1] = (1 << 70) + 3
+        return 128, K, "exps.reduced"
+    if case == "negative":   # bases inverted on the host, then int64
+        K = draw(20)
+        K.flat[2] = -K.flat[2] - 1
+        return 128, K, "exps.int64"
+    if case == "max_above_phi":   # a 32-bit key: phi(p^2) ~ 2^32
+        return 32, draw(40), "exps.reduced"
+    raise ValueError(case)
+
+
+EXP_CASES = ("int64_1_limb", "int64_3_limbs", "object_fits_int64",
+             "object_wider_than_int64", "negative", "max_above_phi")
+
+
+def _scalar_matvec(key, K, cs):
+    box = protocol.GoldBox(key, random.Random(0), batch=False,
+                           device="cpu")
+    return box.matvec(K, cs)
+
+
+@pytest.mark.parametrize("entry", ["matvec_many", "matvec_vec"])
+@pytest.mark.parametrize("case", EXP_CASES)
+def test_matvec_exponent_paths_equal_scalar_gold_and_object_path(
+        case, entry, monkeypatch):
+    """Each exponent block gives the scalar gold loop's ciphertexts, and
+    the object-array path's (``_int64_exps`` off), bit for bit, and moves
+    the ``PROCESS`` counter of the path it took by its exponent count."""
+    B, M, N = (2, 3, 4) if entry == "matvec_many" else (1, 3, 4)
+    rng = random.Random(f"{case}/{entry}")
+    bits, Ks, counter = _exps_block(case, rng, (B, M, N))
+    key = _key(bits)
+    if case == "max_above_phi":
+        assert Ks.max() >= min(key.phi_p2, key.phi_q2)
+    bk = pb.make_batch_key(key, "cpu")
+    cs = [_units(key, rng, N) for _ in range(B)]
+    want = [_scalar_matvec(key, Ks[b], cs[b]) for b in range(B)]
+    materialized = []
+    modexp = pb.modexp_crt_limbs
+    monkeypatch.setattr(pb, "modexp_crt_limbs", lambda *a, **k: (
+        materialized.append(1), modexp(*a, **k))[1])
+
+    def run():
+        if entry == "matvec_vec":
+            return [pb.matvec_vec(bk, Ks[0], ctm.CipherTensor.from_ints(
+                bk, cs[0])).to_ints()]
+        return pb.matvec_many(bk, Ks, cs)
+
+    before = dict(obs_metrics.PROCESS.counters)
+    got = run()
+    assert obs_metrics.PROCESS.since(before, "exps.") == {counter: B * M * N}
+    assert got == want
+    assert bool(materialized) == (case == "negative")
+    monkeypatch.setattr(pb, "_int64_exps", lambda exps: None)
+    before = dict(obs_metrics.PROCESS.counters)
+    assert run() == want
+    assert obs_metrics.PROCESS.since(before, "exps.") == \
+        {"exps.reduced": B * M * N}
+
+
+@pytest.mark.parametrize("entry", ["pow_c_vec", "pow_c_ct", "modexp_crt_vec"])
+@pytest.mark.parametrize("bits,counter", [(128, "exps.int64"),
+                                          (32, "exps.reduced")])
+def test_per_element_modexp_exponent_paths_equal_pow(entry, bits, counter):
+    """Per-element exponents of the batched CRT ModExp outside the matvec
+    take the same two paths: int64 below both phi to the device, any
+    other list reduced on the host; either gives ``pow`` bit for bit."""
+    key = _key(bits)
+    bk = pb.make_batch_key(key, "cpu")
+    rng = random.Random(f"{entry}/{bits}")
+    cs = _units(key, rng, 6)
+    ks = [rng.randrange(1 << 40) for _ in cs]
+    if entry == "modexp_crt_vec":   # a negative one: its base inverted
+        ks[1] = -ks[1]
+    before = dict(obs_metrics.PROCESS.counters)
+    if entry == "pow_c_ct":
+        got = pb.pow_c_ct(bk, ctm.CipherTensor.from_ints(bk, cs),
+                          ks).to_ints()
+    else:
+        got = getattr(pb, entry)(bk, cs, ks)
+    assert got == [pow(c, k, key.n2) for c, k in zip(cs, ks)]
+    assert obs_metrics.PROCESS.since(before, "exps.") == {counter: len(cs)}

@@ -5,7 +5,8 @@ Under ``torch.profiler`` on the CPU a tiny ``run_protocol``,
 ``run_on_runtime`` and ``ProtocolEngine`` run each emit their layers'
 spans, every name from ``trace.SPANS``, every step inside a phase or
 round of its driver; with no profiler recording a span is the one shared
-null context.  The readers ``portbench/metrics/{paillier_host_s,
+null context.  Every edge's Gamma_2 exponents reach the batched CRT
+ModExp as int64, and the run's ``exps`` counters say so.  The readers ``portbench/metrics/{paillier_host_s,
 exps_host_s,coalescer_host_s}.py`` count only names the program or the
 harness emits, and give hand-computed values on a hand-made trace.
 """
@@ -111,6 +112,34 @@ def test_drivers_emit_their_layers_spans(driver, inst):
     for res in results:   # no card, no waits
         stats = res.stats if driver == "protocol" else res.stats["runtime"]
         assert stats["waits"] == {}
+
+
+@pytest.mark.parametrize("driver", ["protocol", "runtime"])
+def test_edge_gamma2_reaches_the_kernels_as_int64(inst, driver,
+                                                  monkeypatch):
+    """Every edge's Gamma_2 block reaches ``_halves`` as int64, never
+    boxed into Python ints: ``exps.int64`` counts every matvec exponent
+    of the run and ``exps.reduced`` none (absent from the run's stats)."""
+    from repro_torch.core import paillier_batch as pb
+    seen = []
+    halves = pb._halves
+
+    def spy(bk, bp, bq, exps, *args, **kwargs):
+        if args[0] is None:   # no scalar exponent: the matvec's
+            seen.append(getattr(exps, "dtype", type(exps)))
+        return halves(bk, bp, bq, exps, *args, **kwargs)
+
+    monkeypatch.setattr(pb, "_halves", spy)
+    before = dict(obs_metrics.PROCESS.counters)
+    res = DRIVERS[driver][0](inst.A, inst.y)[0]
+    stats = res.stats if driver == "protocol" else res.stats["runtime"]
+    matvec_exps = sum(ops.get("modexp", 0)
+                      for ops in res.stats["ops"].values())
+    assert seen and set(seen) == {np.dtype(np.int64)}
+    assert matvec_exps > 0
+    assert obs_metrics.PROCESS.since(before, "exps.") == \
+        {"exps.int64": matvec_exps}
+    assert stats["exps"] == {"exps.int64": matvec_exps}
 
 
 def test_readers_count_only_names_the_program_or_the_harness_emits():
