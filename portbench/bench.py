@@ -10,8 +10,10 @@ mix or a metric is added as new files and new entries, without an edit.
 A run: the driver makes the inputs from the seed and warms the entry up
 at the cell's shapes (set-up), then runs the window.  The device's peak
 memory is read, the program's state freed, and the plain reference
-(:mod:`portbench.reference.admm`) works out every tenant's iterates again
-from the same inputs; ``correct`` is whether they are equal, bit for bit.
+works the outputs out again from the same inputs: the driver's own
+``judge(outcome, config)`` where its module has one (a train step against
+:mod:`portbench.reference.lm`), else :func:`portbench.reference.admm.judge`
+(every tenant's iterates, bit for bit).
 The result carries the cell's end-to-end metrics, or with ``trace`` its
 per-layer metrics and the trace's breakdown.
 """
@@ -21,12 +23,9 @@ import dataclasses
 import gc
 import importlib.util
 import json
-import math
 import sys
 import time
 from pathlib import Path
-
-import numpy as np
 
 ROOT = Path(__file__).resolve().parent.parent
 #: top-level modules the benchmark's process may never hold
@@ -61,7 +60,9 @@ class RunRecord:
     shape_launches: dict        # (body, B, k) -> launches in the window
     serve: dict | None          # the cross-tenant coalescer's counters
     trace: object | None        # trace.TraceSummary of a traced run
-    inputs: dict                # nk, key_bits, code_bits
+    inputs: dict                # the judge's: nk, key_bits, code_bits
+                                # (LASSO); model, seq (a train step)
+    counts: dict = dataclasses.field(default_factory=dict)  # steps, tokens
 
     @property
     def tenant_rounds(self) -> int:
@@ -129,32 +130,6 @@ def forbidden_modules() -> list:
                   & set(FORBIDDEN))
 
 
-def judge(outcome, config: dict) -> dict:
-    """Every tenant's iterates against the plain reference's."""
-    from .reference.admm import lasso_history
-    gap, short, failed, bits = 0.0, 0, 0, 0
-    for ten in outcome.tenants:
-        want, code_bits = lasso_history(
-            ten.A, ten.y, K=config["K"], rho=config["rho"],
-            lam=config["lam"], delta=config["delta"], zmin=config["zmin"],
-            zmax=config["zmax"], rounds=outcome.rounds)
-        bits = max(bits, code_bits)
-        got = np.asarray(ten.history, np.float64)
-        rows = min(len(got), len(want))
-        short += outcome.rounds - rows
-        diff = np.abs(got[:rows] - want[:rows])
-        diff[np.isnan(diff)] = math.inf
-        if diff.size:
-            gap = max(gap, float(diff.max()))
-        failed += int(np.count_nonzero(diff.max(axis=1) > 0)) \
-            + outcome.rounds - rows
-    checks = {"history_gap": {"value": gap, "limit": 0.0},
-              "rounds_missing": {"value": short, "limit": 0}}
-    return {"correct": gap <= 0.0 and short == 0,
-            "attempted": len(outcome.tenants) * outcome.rounds,
-            "failed": failed, "checks": checks, "code_bits": bits}
-
-
 def _metrics(entries: list, run: RunRecord, root: Path,
              required: bool) -> dict:
     out = {}
@@ -192,7 +167,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
     from .window import Window
 
     kernels_s = 0.0
-    if cuda:
+    if cuda and getattr(cell.driver, "BUILDS_KERNELS", True):
         # build the kernels, or load them from the build cache
         from repro_torch.kernels import build
         t_kernels = time.perf_counter()
@@ -207,25 +182,28 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
     summary = None
     if trace:
         from torch.autograd import DeviceType
+        t_trace = time.perf_counter()
         summary = summarize(window.prof.profiler.kineto_results.events(),
                             DeviceType.CUDA if cuda else DeviceType.CPU,
                             labels=spans.labels())
         window.prof = None
+        trace_s = time.perf_counter() - t_trace
     del driver
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
     t_judge = time.perf_counter()
+    judge = getattr(cell.driver, "judge", None)
+    if judge is None:
+        from .reference.admm import judge
     verdict = judge(outcome, config)
     reference_s = time.perf_counter() - t_judge
     run = RunRecord(
         tenants=len(outcome.tenants), rounds=outcome.rounds,
         laps=outcome.laps, window_s=outcome.window_s, setup_s=setup_s,
         launches=window.launches, shape_launches=window.shape_launches,
-        serve=outcome.serve, trace=summary,
-        inputs={"nk": config["N"] // config["K"],
-                "key_bits": config["key_bits"],
-                "code_bits": verdict["code_bits"]})
+        serve=outcome.serve, trace=summary, inputs=verdict["inputs"],
+        counts=outcome.counts)
     if trace:
         metrics = _metrics(cell.per_layer, run, cell.root, required=False)
     else:
@@ -244,10 +222,14 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
         result["breakdown"] = {"device_ops": summary.device_ops,
                                "idle_gaps": summary.idle_gaps}
     result["run"] = {"seed": seed, "rounds": outcome.rounds,
-                     "tenant_rounds": run.tenant_rounds,
+                     "tenant_rounds": run.tenant_rounds, **outcome.counts,
                      "window_s": outcome.window_s, "setup_s": setup_s,
                      "kernels_s": kernels_s, "reference_s": reference_s,
                      "launches": window.launches, "laps": outcome.laps}
+    if summary is not None:
+        result["run"].update(trace_s=trace_s,
+                             span_device_s=summary.span_device_s,
+                             gemm_device_s=summary.gemm_device_s)
     result["checks"] = verdict["checks"]
     for check, v in verdict["checks"].items():
         print(f"{check} {v['value']!r} limit {v['limit']!r}",

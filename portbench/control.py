@@ -6,9 +6,9 @@ place and computed a precision lower than the configuration states
         --seeds 11 12 13
 
 prints, for each seed, the verdict of the harness's own comparison
-(``bench.judge``) on the control's iterates: ``correct`` and the numbers
-compared, the widest gap from the reference's iterates over every tenant
-and round among them (a sound run reads 0, its limit).  The benchmark's
+(``reference.admm.judge``) on the control's iterates: ``correct`` and the
+numbers compared, the widest gap from the reference's iterates over every
+tenant and round among them (a sound run reads 0, its limit).  The benchmark's
 own runs never run it.
 """
 from __future__ import annotations
@@ -25,12 +25,12 @@ ROOT = Path(__file__).resolve().parent.parent
 
 def control_verdict(config: dict, tenants: int, seed: int, rounds: int,
                     dtype=np.float32) -> dict:
-    """The verdict of :func:`portbench.bench.judge`, the comparison that
-    decides a run's ``correct``, on the control's iterates for one seed:
-    each tenant's history computed by the reference in ``dtype``."""
-    from portbench import bench
+    """The verdict of :func:`portbench.reference.admm.judge`, the
+    comparison that decides a run's ``correct``, on the control's iterates
+    for one seed: each tenant's history computed by the reference in
+    ``dtype``."""
     from portbench.program import Outcome, Tenant, inputs
-    from portbench.reference.admm import lasso_history
+    from portbench.reference.admm import judge, lasso_history
     kw = dict(K=config["K"], rho=config["rho"], lam=config["lam"],
               delta=config["delta"], zmin=config["zmin"],
               zmax=config["zmax"], rounds=rounds)
@@ -38,8 +38,8 @@ def control_verdict(config: dict, tenants: int, seed: int, rounds: int,
     for i in range(tenants):
         A, y = inputs(config, seed + i)
         tens.append(Tenant(A, y, lasso_history(A, y, dtype=dtype, **kw)[0]))
-    return bench.judge(Outcome(tenants=tens, rounds=rounds, laps=[],
-                               window_s=0.0), config)
+    return judge(Outcome(tenants=tens, rounds=rounds, laps=[], window_s=0.0),
+                 config)
 
 
 def main(argv=None) -> int:

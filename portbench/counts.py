@@ -1,4 +1,5 @@
-"""Least work, bytes and time of one kernel launch, by function.
+"""Least work, bytes and time of one kernel launch, by function; and the
+model FLOPs of a language model's train step (:func:`lm_train_flops`).
 
 The yardstick of the benchmark's roofline metrics.  A launch is counted by
 the *function* it computes (``mulmod``, ``modexp``, ``modexp_fixed``,
@@ -144,3 +145,30 @@ def least_seconds_of(shape_launches: dict, *, nk: int, key_bits: int,
         work, nbytes = launch_work(fn, B, k, exp_bits=bits, factors=nk)
         out[fn] = out.get(fn, 0.0) + n * least_seconds(work, nbytes)
     return out
+
+
+#: One NVIDIA H100 SXM's dense bf16 tensor-core rate (data sheet, 700 W).
+BF16_FLOP_PER_S = 989.4e12
+
+
+def lm_nonembedding_params(model: dict) -> int:
+    """Parameters of a dense decoder other than the embedding table: each
+    layer's attention (q, k, v, o), gated MLP (gate, up, down) and two
+    norm scales, the final norm and the output head."""
+    d, ff = model["d_model"], model["d_ff"]
+    hd = model.get("head_dim") or d // model["n_heads"]
+    m = model.get("pad_vocab_multiple", 128)
+    vocab = -(-model["vocab"] // m) * m
+    attn = d * hd * (2 * model["n_heads"] + 2 * model["n_kv"])
+    layer = attn + 3 * d * ff + 2 * d
+    return model["n_layers"] * layer + d + d * vocab
+
+
+def lm_train_flops(model: dict, seq: int, tokens: int) -> float:
+    """Model FLOPs of training on ``tokens`` tokens in sequences of
+    ``seq``: PaLM's count (arXiv:2204.02311, appendix B), 6 N T for the
+    weights' products forward and backward and 12 L H hd S T for
+    attention's; no recomputation is counted."""
+    hd = model.get("head_dim") or model["d_model"] // model["n_heads"]
+    return (6 * lm_nonembedding_params(model) * tokens
+            + 12 * model["n_layers"] * model["n_heads"] * hd * seq * tokens)

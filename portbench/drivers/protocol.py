@@ -4,7 +4,8 @@ Set-up runs the entry once for ``warmup_rounds`` rounds at the cell's
 shapes; the timed call then runs as many rounds as fill the window at the
 warm-up's last round.  Its key generation, init and share phases are
 set-up; the window is its iterate phase, timed on the host clock where
-the program's phase clock laps.
+the program's phase clock laps.  A ``cipher`` among the traffic's
+parameters takes the place of the configuration's.
 """
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ from portbench import program
 
 class Driver:
     def __init__(self, config: dict, params: dict, seed: int, device: str):
+        if "cipher" in params:
+            config = {**config, "cipher": params["cipher"]}
         self.config, self.params = config, params
         self.seed, self.device = seed, device
         self.A, self.y = program.inputs(config, seed)

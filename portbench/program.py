@@ -32,6 +32,8 @@ class Outcome:
     laps: list                  # every tenant-round's wall lap, s
     window_s: float             # wall seconds of the window
     serve: dict | None = None   # the cross-tenant coalescer's counters
+    counts: dict = dataclasses.field(default_factory=dict)  # steps, tokens
+    payload: object = None      # what the driver's own judge reads
 
 
 def inputs(config: dict, seed: int):

@@ -34,3 +34,23 @@ def idle_share(run) -> float | None:
     if run.trace is None or run.trace.busy_s <= 0:
         return None
     return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)
+
+
+def span_share(run, span: str) -> float | None:
+    """Share of the traced window's device seconds launched under the
+    harness span ``span``, in percent; ``None`` where it launched
+    nothing."""
+    if run.trace is None or run.trace.device_s <= 0:
+        return None
+    seconds = run.trace.span_device_s.get(span, 0.0)
+    return 100.0 * seconds / run.trace.device_s if seconds > 0 else None
+
+
+def gemm_share(run, exclude=()) -> float | None:
+    """Share of the traced window's device seconds in matrix-product
+    kernels launched outside the spans ``exclude``, in percent."""
+    if run.trace is None or run.trace.device_s <= 0:
+        return None
+    seconds = sum(s for span, s in run.trace.gemm_device_s.items()
+                  if span not in exclude)
+    return 100.0 * seconds / run.trace.device_s if seconds > 0 else None

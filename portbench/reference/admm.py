@@ -1,4 +1,5 @@
-"""Plain reference of the encrypted LASSO iteration (Algorithm 1).
+"""Plain reference of the encrypted LASSO iteration (Algorithm 1), and
+the comparison that decides a LASSO cell's ``correct`` (:func:`judge`).
 
 What the port's decrypted iterates must equal: the integer chain that
 Paillier's homomorphism carries, worked out in the clear with NumPy and
@@ -129,3 +130,32 @@ def lasso_history(A, y, *, K: int, rho: float, lam: float, delta: float,
         x_prev = x_new
         history[t] = x_new
     return history.astype(np.float64), code_bits
+
+
+def judge(outcome, config: dict) -> dict:
+    """Every tenant's iterates against :func:`lasso_history`'s, bit for
+    bit: the verdict of a LASSO cell, and the inputs its rooflines read
+    (an edge's block ``nk``, the key and the widest Gamma_2 code)."""
+    gap, short, failed, bits = 0.0, 0, 0, 0
+    for ten in outcome.tenants:
+        want, code_bits = lasso_history(
+            ten.A, ten.y, K=config["K"], rho=config["rho"],
+            lam=config["lam"], delta=config["delta"], zmin=config["zmin"],
+            zmax=config["zmax"], rounds=outcome.rounds)
+        bits = max(bits, code_bits)
+        got = np.asarray(ten.history, np.float64)
+        rows = min(len(got), len(want))
+        short += outcome.rounds - rows
+        diff = np.abs(got[:rows] - want[:rows])
+        diff[np.isnan(diff)] = np.inf
+        if diff.size:
+            gap = max(gap, float(diff.max()))
+        failed += int(np.count_nonzero(diff.max(axis=1) > 0)) \
+            + outcome.rounds - rows
+    checks = {"history_gap": {"value": gap, "limit": 0.0},
+              "rounds_missing": {"value": short, "limit": 0}}
+    return {"correct": gap <= 0.0 and short == 0,
+            "attempted": len(outcome.tenants) * outcome.rounds,
+            "failed": failed, "checks": checks,
+            "inputs": {"nk": config["N"] // config["K"],
+                       "key_bits": config["key_bits"], "code_bits": bits}}

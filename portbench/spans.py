@@ -12,7 +12,7 @@ import contextlib
 import importlib
 
 #: ``module:attribute`` of every call the traced run wraps, from the
-#: drivers down to the kernel wrappers
+#: drivers down to the kernel wrappers, and the train step's parts
 TARGETS = (
     # drivers: the quantizer, Theorem 1, the master's update
     "repro_torch.core.protocol:gamma1",
@@ -51,6 +51,15 @@ TARGETS = (
     "repro_torch.kernels.ops:modexp_rows",
     "repro_torch.kernels.ops:prod_rows",
     "repro_torch.kernels.ops:prod_mod",
+    # model: the forward (each block, again where the backward recomputes
+    # it), attention, the MLP and the loss; the backward; the optimizer
+    "repro_torch.models.transformer:forward",
+    "repro_torch.models.transformer:block",
+    "repro_torch.models.layers:attention",
+    "repro_torch.models.layers:mlp",
+    "repro_torch.models.layers:nll",
+    "torch:Tensor.backward",
+    "repro_torch.train.optimizer:adamw_update",
 )
 
 

@@ -17,10 +17,18 @@ from portbench.reference.admm import lasso_history
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 CELLS = [w["name"] for w in BENCH["workloads"]]
+#: the cells judged by the LASSO reference, and the train cells
+TRAIN = [c for c in CELLS
+         if hasattr(bench.resolve_cell(c).driver, "judge")]
+LASSO = [c for c in CELLS if c not in TRAIN]
 #: 8 rows, 8 columns an edge (4 for ten edges), 80-bit keys
 TINY = {"fig6_k3": {"M": 8, "N": 24, "key_bits": 80},
         "fig6_k3_n1584": {"M": 8, "N": 24, "key_bits": 80},
         "fig7_k10": {"M": 8, "N": 40, "key_bits": 80}}
+#: Yi-9B's reduced() sizes in float32, 2 x 32 tokens a step
+TINY_LM = {"config": {"n_layers": 2, "d_model": 64, "n_heads": 4, "n_kv": 2,
+                      "d_ff": 128, "vocab": 256, "dtype": "float32"},
+           "params": {"seq": 32}}
 
 
 def tiny(cell: str) -> dict:
@@ -28,7 +36,7 @@ def tiny(cell: str) -> dict:
             "params": {"warmup_rounds": 1, "least_rounds": 2}}
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", LASSO)
 def test_cell_equals_the_reference(cell):
     result = bench.run_cell(cell, 2 ** 31 + 11, 0.01, False, device="cpu",
                             overrides=tiny(cell))
@@ -44,6 +52,32 @@ def test_cell_equals_the_reference(cell):
     assert all(v["value"] > 0 for v in result["metrics"].values())
     assert set(result["device"]) == {"platform", "kind", "count",
                                      "memory_peak_bytes"}
+    json.dumps(result)
+
+
+@pytest.mark.parametrize("cell", TRAIN)
+def test_train_cell_equals_the_reference(cell, capsys):
+    """At Yi-9B's reduced() sizes in float32 the program's warm-up steps
+    equal the reference's to float32 rounding: every number far under
+    the cell's limits, every window step's loss finite."""
+    result = bench.run_cell(cell, 2 ** 31 + 11, 0.2, False, device="cpu",
+                            overrides=TINY_LM)
+    assert list(result) == ["correct", "attempted", "failed", "metrics",
+                            "device", "run", "checks"]
+    checks = result["checks"]
+    assert result["correct"] and result["failed"] == 0, checks
+    assert list(checks) == ["loss_gap", "grad_gap", "change_gap",
+                            "losses_nonfinite", "steps_missing"]
+    for name in ("loss_gap", "grad_gap", "change_gap"):
+        assert checks[name]["value"] < 1e-4 * checks[name]["limit"] + 1e-5
+    assert result["attempted"] == 3 + result["run"]["steps"]
+    assert result["run"]["tokens"] == result["run"]["steps"] * 2 * 32
+    units = {m["name"]: m["unit"] for m in BENCH["end_to_end"]
+             if cell in m.get("workloads", CELLS)}
+    assert {k: v["unit"] for k, v in result["metrics"].items()} == units
+    assert all(v["value"] > 0 for v in result["metrics"].values())
+    err = capsys.readouterr().err.strip().splitlines()
+    assert [line.split()[0] for line in err[-5:]] == list(checks)
     json.dumps(result)
 
 

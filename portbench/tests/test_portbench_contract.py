@@ -91,18 +91,26 @@ def test_every_cell_reports_its_metrics():
                    for m in BENCH["per_layer"])
 
 
+#: what a configuration file holds: a LASSO deployment's, a model's
+LASSO_KEYS = ("M", "N", "K", "key_bits", "delta", "rho", "lam", "zmin",
+              "zmax")
+MODEL_KEYS = ("family", "n_layers", "d_model", "n_heads", "n_kv", "d_ff",
+              "vocab", "rope_theta", "norm_eps", "dtype", "remat",
+              "reference", "optimizer", "limits")
+
+
 @pytest.mark.parametrize("cell", CELLS)
 def test_cell_files_found_by_name(cell):
     found = bench.resolve_cell(cell)
     assert hasattr(found.driver, "Driver")
-    for key in ("M", "N", "K", "key_bits", "delta", "rho", "lam", "zmin",
-                "zmax", "source", "reduced", "assumed"):
+    keys = MODEL_KEYS if hasattr(found.driver, "judge") else LASSO_KEYS
+    for key in keys + ("source", "reduced", "assumed", "published"):
         assert key in found.config
     entry = next(c for c in BENCH["configs"]
                  if c["name"] == found.config["name"])
     assert sorted(found.config["reduced"]) == sorted(entry["reduced"])
-    for key in entry["reduced"]:
-        assert found.config[key] != found.config["published"][key]
+    for key, value in found.config["published"].items():
+        assert (found.config[key] != value) == (key in entry["reduced"]), key
     for m in found.end_to_end + found.per_layer:
         assert callable(bench.reader(ROOT, m["name"]))
 
@@ -122,7 +130,8 @@ def test_no_jax_and_a_reference_apart_from_the_program():
     for path in PB.rglob("*.py"):
         assert not _imports(path) & set(bench.FORBIDDEN), path
     for path in (PB / "reference").rglob("*.py"):
-        assert _imports(path) <= {"__future__", "numpy"}, path
+        assert _imports(path) <= {"__future__", "math", "numpy", "torch"}, \
+            path
 
 
 def test_the_program_loads_no_jax():
@@ -130,7 +139,8 @@ def test_the_program_loads_no_jax():
     before it prints a result finds the JAX package once it is loaded."""
     code = ("from portbench import bench, counts, program, spans, trace; "
             "import repro_torch.core.protocol, repro_torch.runtime.runner, "
-            "repro_torch.serve.protocol_engine; "
+            "repro_torch.serve.protocol_engine, repro_torch.train.loop; "
+            "spans.labels(); [spans.resolve(t) for t in spans.TARGETS]; "
             "assert not bench.forbidden_modules(); "
             "import repro; assert 'repro' in bench.forbidden_modules()")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -179,7 +189,8 @@ def test_counts_agree_with_the_kernel_table(function, B, k, exp_bits,
 def test_new_files_and_entries_extend_the_benchmark(tmp_path):
     """A configuration, a traffic mix and a per-layer metric, each added
     as a file and an entry in a copy, run without an edit to any file
-    the copy already had."""
+    the copy already had: a LASSO deployment, and a dense model (Yi-9B's
+    reduced() sizes) trained by the train driver on a mix of its own."""
     shutil.copytree(PB, tmp_path / "portbench",
                     ignore=shutil.ignore_patterns("__pycache__"))
     before = {p.relative_to(tmp_path): p.read_bytes()
@@ -204,7 +215,29 @@ def test_new_files_and_entries_extend_the_benchmark(tmp_path):
                               "better": "higher", "source": "host_clock",
                               "layer": "drivers", "moves": "setup_s",
                               "workloads": ["dummy_cfg.dummy_mix"]})
+    lm_cfg = json.loads((PB / "configs" / "yi9b_d8.json").read_text())
+    lm_cfg.update(name="tiny_lm", n_layers=2, d_model=64, n_heads=4, n_kv=2,
+                  d_ff=128, vocab=256, dtype="float32")
+    (tmp_path / "portbench/configs/tiny_lm.json").write_text(
+        json.dumps(lm_cfg))
+    (tmp_path / "portbench/traffic/tiny_train.json").write_text(json.dumps(
+        {"driver": "train", "why": "a dummy",
+         "params": {"batch": 2, "seq": 16, "warmup_steps": 3,
+                    "least_steps": 2}}))
+    copy["configs"].append({"name": "tiny_lm", "source": "a dummy",
+                            "file": "portbench/configs/tiny_lm.json",
+                            "reduced": [], "why": "a dummy"})
+    copy["workloads"].append({"name": "tiny_lm.tiny_train",
+                              "config": "tiny_lm", "traffic": "tiny_train",
+                              "chips": 1, "why": "a dummy"})
+    for m in copy["end_to_end"]:
+        if "yi9b_d8.train" in m.get("workloads", ()):
+            m["workloads"].append("tiny_lm.tiny_train")
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(copy))
+    lm = bench.run_cell("tiny_lm.tiny_train", 9, 0.05, False,
+                        root=tmp_path, device="cpu")
+    assert lm["correct"] and list(lm["metrics"]) == [
+        "setup_s", "train_tokens_per_s", "mfu"], lm["checks"]
     cell = bench.resolve_cell("dummy_cfg.dummy_mix", root=tmp_path)
     assert [m["name"] for m in cell.per_layer] == ["dummy_metric"]
     assert [m["name"] for m in cell.end_to_end] == ["setup_s"]

@@ -1,6 +1,6 @@
 """The control fails the comparison that decides ``correct``: the plain
 reference in float32 in place of the program, at each configuration's
-own size, on three seeds, judged by the harness's ``bench.judge``; the
+own size, on three seeds, judged by the harness's ``reference.admm.judge``; the
 float64 reference in the program's place passes it."""
 from __future__ import annotations
 
@@ -13,8 +13,10 @@ import pytest
 from portbench.control import control_verdict
 
 ROOT = Path(__file__).resolve().parents[2]
+#: the LASSO configurations (a train cell's control: test_portbench_lm)
 CONFIGS = [c["name"] for c in
-           json.loads((ROOT / "BENCHMARK.json").read_text())["configs"]]
+           json.loads((ROOT / "BENCHMARK.json").read_text())["configs"]
+           if "M" in json.loads((ROOT / c["file"]).read_text())]
 
 
 @pytest.mark.parametrize("config", CONFIGS)
