@@ -21,10 +21,27 @@ class ModelConfig:
     top_k: int = 1
     moe_d_ff: int = 0           # per-expert hidden width (0 -> d_ff)
     capacity_factor: float = 1.25
+    # sigmoid routing (afmoe): dropless, the top_k chosen on score + a
+    # selection bias that moves by the load-balancing rule after each
+    # train step (rate ``bias_rate``), the weights the chosen scores
+    # over their sum times ``route_scale``
+    router: str = "softmax"     # softmax (capacity-bounded) | sigmoid
+    route_scale: float = 1.0
+    bias_rate: float = 0.0
+    dense_layers: int = 0       # leading layers with a dense MLP (d_ff)
+    # the experts this device holds: ``experts_held`` of them (0 -> all)
+    # from ``experts_first`` on; the router still scores every expert
+    experts_held: int = 0
+    experts_first: int = 0
     # --- attention details ---
     qkv_bias: bool = False
     rope_theta: float = 10_000.0
     window: int = 0             # sliding-window size for local attention
+    global_every: int = 0       # with a window: every n-th layer is full
+    # "afmoe": per-head q/k RMSNorm, o * sigmoid(h Wg) before Wo, RoPE
+    # on windowed layers alone, norms after attention and the FFN too
+    # (sandwich), embeddings times sqrt(d_model)
+    block: str = "llama"        # llama | afmoe
     # --- griffin (RG-LRU) ---
     block_pattern: tuple = ()   # e.g. ("rec", "rec", "attn")
     lru_width: int = 0          # 0 -> d_model
@@ -70,13 +87,40 @@ class ModelConfig:
     def e_ff(self) -> int:
         return self.moe_d_ff or self.d_ff
 
+    @property
+    def held(self) -> range:
+        """The expert indices this device holds."""
+        n = self.experts_held or self.experts
+        return range(self.experts_first, self.experts_first + n)
+
+    def layer_window(self, i: int) -> int:
+        """Layer ``i``'s attention window (0: full attention)."""
+        if self.global_every and i % self.global_every == \
+                self.global_every - 1:
+            return 0
+        return self.window
+
+    @property
+    def afmoe(self) -> bool:
+        return self.block == "afmoe"
+
+    def layer_rope(self, i: int) -> bool:
+        return not (self.afmoe and self.layer_window(i) == 0)
+
+    def layer_is_moe(self, i: int) -> bool:
+        return self.family == "moe" and i >= self.dense_layers
+
     def param_count(self) -> int:
         """Analytic parameter count (true config, before padding)."""
         d, hd = self.d_model, self.hd
         attn = d * self.n_heads * hd + 2 * d * self.n_kv * hd \
             + self.n_heads * hd * d
+        # the output gate, the q/k norms and the sandwich norms
+        attn += self.afmoe * (d * self.n_heads * hd + 2 * hd + 2 * d)
+        dense = 3 * d * self.d_ff
         if self.family == "moe":
-            mlp = self.n_experts * 3 * d * self.e_ff \
+            routed = self.experts_held or self.n_experts
+            mlp = routed * 3 * d * self.e_ff \
                 + self.n_shared_experts * 3 * d * self.e_ff + d * self.n_experts
         elif self.family == "xlstm":
             pf = self.proj_factor
@@ -88,7 +132,9 @@ class ModelConfig:
             layers = self.enc_layers + self.dec_layers
             attn = attn * 1.5  # decoder cross-attention amortized
         emb = self.vocab * d * (1 if self.tie_embeddings else 2)
-        return int(layers * (attn + mlp + 2 * d) + emb + d)
+        lead = self.dense_layers * (dense - mlp) if self.family == "moe" \
+            else 0
+        return int(layers * (attn + mlp + 2 * d) + lead + emb + d)
 
     def active_param_count(self) -> int:
         """Activated params per token (MoE: shared + top_k routed)."""
@@ -96,6 +142,10 @@ class ModelConfig:
             return self.param_count()
         d = self.d_model
         dense_like = dataclasses.replace(
-            self, family="dense",
+            self, family="dense", dense_layers=0,
             d_ff=(self.top_k + self.n_shared_experts) * self.e_ff)
-        return dense_like.param_count() + self.n_layers * d * self.n_experts
+        moe_layers = self.n_layers - self.dense_layers
+        lead = self.dense_layers * 3 * d * (
+            self.d_ff - (self.top_k + self.n_shared_experts) * self.e_ff)
+        return dense_like.param_count() + lead + moe_layers * d \
+            * self.n_experts

@@ -309,6 +309,15 @@ def attention_flash(q, k, v, *, causal=True, window=0,
     over ``q_chunk``-row chunks computes for each row, in the same order
     (``q_chunk`` changes no number).  The running max starts at the mask
     value and the row sum is floored at 1e-30, as in the reference.
+
+    With a ``window`` the queries are taken ``q_chunk`` rows at a time,
+    and each chunk visits only the keys its window can reach, as one
+    block: the keys it skips are wholly masked for its rows, and a
+    wholly masked block changes nothing that the first unmasked one does
+    not reset (its correction factor is exp(mask value - max) = 0), so
+    the skip changes no number beyond the products' summation order.
+    One block a query chunk keeps each operation large (a block of 512
+    rows by up to 512 + window - 1 keys).
     """
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
@@ -319,21 +328,40 @@ def attention_flash(q, k, v, *, causal=True, window=0,
         k = F.pad(k, (0, 0, 0, 0, 0, pad_k))
         v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
         T += pad_k
-    nk = T // k_chunk
-    rep = H // KV
     scale = float(1.0 / math.sqrt(D))
-    dev = q.device
     qg = _group(q, KV).float() * scale
-    qpos = torch.arange(S, device=dev)
-    m = torch.full((B, KV, rep, S), MASK_VALUE, device=dev)
-    l = torch.zeros((B, KV, rep, S), device=dev)
-    acc = torch.zeros((B, KV, rep, S, D), device=dev)
-    for kj in range(nk):
-        kc = k[:, kj * k_chunk:(kj + 1) * k_chunk]
-        vc = v[:, kj * k_chunk:(kj + 1) * k_chunk]
+    qpos = torch.arange(S, device=q.device)
+    if window:
+        outs = []
+        for q0 in range(0, S, q_chunk):
+            q1 = min(S, q0 + q_chunk)
+            k0 = max(0, q0 - window + 1)
+            k1 = q1 if causal else T
+            outs.append(_online_softmax(qg[:, q0:q1], k, v, qpos[q0:q1],
+                                        [k0], k1 - k0, T0, causal, window))
+        out = torch.cat(outs, dim=3)
+    else:
+        out = _online_softmax(qg, k, v, qpos, range(0, T, k_chunk), k_chunk,
+                              T0, causal, window)
+    # (B,KV,rep,S,D) -> (B,S,H,D)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)
+
+
+def _online_softmax(qg, k, v, qpos, starts, width, T0, causal, window):
+    """Rows ``qg`` (B, Sq, KV, rep, D, scaled, at positions ``qpos``)
+    updated by the key blocks ``[k0, k0 + width)``, ``k0`` in ``starts``,
+    in turn -> (B, KV, rep, Sq, D)."""
+    B, Sq, KV, rep, D = qg.shape
+    dev = qg.device
+    m = torch.full((B, KV, rep, Sq), MASK_VALUE, device=dev)
+    l = torch.zeros((B, KV, rep, Sq), device=dev)
+    acc = torch.zeros((B, KV, rep, Sq, D), device=dev)
+    for k0 in starts:
+        kc = k[:, k0:k0 + width]
+        vc = v[:, k0:k0 + width]
         s = torch.einsum("bsgrd,btgd->bgrst", qg, kc.float())
-        kpos = kj * k_chunk + torch.arange(k_chunk, device=dev)
-        mask = (kpos < T0)[None, :].expand(S, k_chunk)
+        kpos = k0 + torch.arange(width, device=dev)
+        mask = (kpos < T0)[None, :].expand(Sq, width)
         if causal:
             mask = mask & (qpos[:, None] >= kpos[None, :])
         if window:
@@ -346,9 +374,7 @@ def attention_flash(q, k, v, *, causal=True, window=0,
         acc = acc * corr[..., None] + torch.einsum(
             "bgrst,btgd->bgrsd", p, vc.float())
         m = m_new
-    out = acc / torch.clamp(l[..., None], min=1e-30)
-    # (B,KV,rep,S,D) -> (B,S,H,D)
-    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)
+    return acc / torch.clamp(l[..., None], min=1e-30)
 
 
 def attention_decode(q, k_cache, v_cache, cache_len: int, *, window=0):
@@ -396,6 +422,10 @@ def init_attn(init: Init, cfg) -> dict:
         "wv": init.dense((d, KV * hd)),
         "wo": init.dense((H * hd, d)),
     }
+    if cfg.afmoe:
+        p["wg"] = init.dense((d, H * hd))
+        p["q_norm"] = init.zeros((hd,))
+        p["k_norm"] = init.zeros((hd,))
     if cfg.qkv_bias:
         p["bq"] = init.zeros((H * hd,))
         p["bk"] = init.zeros((KV * hd,))
@@ -403,8 +433,9 @@ def init_attn(init: Init, cfg) -> dict:
     return p
 
 
-def qkv_proj(p: Params, x, cfg, positions):
-    """x (B,S,d) -> q (B,S,H,hd), k/v (B,S,KV,hd), RoPE applied."""
+def qkv_proj(p: Params, x, cfg, positions, use_rope=True):
+    """x (B,S,d) -> q (B,S,H,hd), k/v (B,S,KV,hd): the per-head norms
+    (the afmoe block's), then RoPE unless ``use_rope`` is False."""
     B, S, _ = x.shape
     hd = cfg.hd
     dt = x.dtype
@@ -418,8 +449,12 @@ def qkv_proj(p: Params, x, cfg, positions):
     q = split_heads(q, cfg.q_heads, hd)
     k = split_heads(k, cfg.n_kv, hd)
     v = split_heads(v, cfg.n_kv, hd)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if cfg.afmoe:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -437,9 +472,14 @@ def split_heads(t, n: int, hd: int):
     return t.reshape(*t.shape[:-1], n, hd)
 
 
-def attn_out(p: Params, o, cfg):
-    B, S, H, hd = o.shape
-    return merge_heads(o) @ p.w("wo", o.dtype)
+def attn_out(p: Params, o, cfg, h=None):
+    """The heads' output through ``wo``; in the afmoe block first
+    gated by sigmoid(h Wg), ``h`` the attention's (normed) input."""
+    o = merge_heads(o)
+    if cfg.afmoe:
+        gate = torch.sigmoid((h @ p.w("wg", h.dtype)).float())
+        o = (o.float() * gate).to(o.dtype)
+    return o @ p.w("wo", o.dtype)
 
 
 def merge_heads(o):
@@ -475,6 +515,11 @@ def mlp(p: Params, x, act: str = "silu"):
 # ---------------------------------------------------------------------------
 
 def embed(params: Params, tokens: torch.Tensor, cfg) -> torch.Tensor:
+    """The tokens' rows of the table; in the afmoe block times
+    sqrt(d_model), in float32 before the cast."""
+    if cfg.afmoe:
+        x = params.take("embed", tokens, torch.float32)
+        return (x * math.sqrt(cfg.d_model)).to(cdtype(cfg))
     return params.take("embed", tokens, cdtype(cfg))
 
 

@@ -1,9 +1,11 @@
 """Dense decoder-only transformer LM (also the VLM backbone).
 
 Port of ``repro.models.transformer``: GQA + RoPE, optional QKV bias,
-SwiGLU MLP or MoE blocks, KV-cache prefill/decode (bfloat16 cache, or
-int8 with per-position scales), and an optional prefix-embedding input
-for the VLM frontend stub.  Layers are an ``nn.ModuleList`` run one
+SwiGLU MLP or MoE blocks (the afmoe block too: per-layer window and
+RoPE, q/k norms, an output gate, sandwich norms, scaled embeddings,
+leading dense layers, sigmoid routing), KV-cache prefill/decode
+(bfloat16 cache, or int8 with per-position scales), and an optional
+prefix-embedding input for the VLM frontend stub.  Layers are an ``nn.ModuleList`` run one
 after another, where the reference stacks them under ``vmap``/``scan``;
 ``forward``'s ``use_scan`` is accepted for that reason and changes no
 number, and ``remat`` (on by default, as in the reference) recomputes
@@ -27,13 +29,16 @@ from . import moe as moe_mod
 # Init
 # ---------------------------------------------------------------------------
 
-def init_layer(init: L.Init, cfg) -> dict:
+def init_layer(init: L.Init, cfg, i: int = 0) -> dict:
     p = {
         "ln_attn": init.zeros((cfg.d_model,)),
         "ln_mlp": init.zeros((cfg.d_model,)),
         "attn": L.init_attn(init, cfg),
     }
-    if cfg.family == "moe":
+    if cfg.afmoe:
+        p["ln_attn_post"] = init.zeros((cfg.d_model,))
+        p["ln_mlp_post"] = init.zeros((cfg.d_model,))
+    if cfg.layer_is_moe(i):
         p["moe"] = moe_mod.init_moe(init, cfg)
     else:
         p["mlp"] = L.init_mlp(init, cfg.d_model, cfg.d_ff)
@@ -43,7 +48,7 @@ def init_layer(init: L.Init, cfg) -> dict:
 def param_tree(cfg, init: L.Init) -> dict:
     tree = {
         "embed": init.embed(cfg.padded_vocab, cfg.d_model),
-        "layers": [init_layer(init, cfg) for _ in range(cfg.n_layers)],
+        "layers": [init_layer(init, cfg, i) for i in range(cfg.n_layers)],
         "ln_f": init.zeros((cfg.d_model,)),
     }
     if not cfg.tie_embeddings:
@@ -52,7 +57,12 @@ def param_tree(cfg, init: L.Init) -> dict:
 
 
 def init_params(cfg, seed: int = 0, device=None) -> L.Params:
-    return L.Params(param_tree(cfg, L.make_init(device, seed)))
+    params = L.Params(param_tree(cfg, L.make_init(device, seed)))
+    if cfg.router == "sigmoid":
+        for lp in params["layers"]:
+            if "moe" in lp:
+                moe_mod.add_bias_state(lp["moe"], cfg)
+    return params
 
 
 # ---------------------------------------------------------------------------
@@ -60,20 +70,27 @@ def init_params(cfg, seed: int = 0, device=None) -> L.Params:
 # ---------------------------------------------------------------------------
 
 def _ffn(lp, h, cfg):
-    if cfg.family == "moe":
+    if "moe" in lp:
         return moe_mod.moe_block(lp["moe"], h, cfg)
     return L.mlp(lp["mlp"], h, cfg.act)
 
 
-def block(lp, x, cfg, positions, kv_out=None):
+def _post(lp, name, y, cfg):
+    """``y`` through the sandwich norm ``name`` in the afmoe block."""
+    return L.rms_norm(y, lp[name], cfg.norm_eps) if cfg.afmoe else y
+
+
+def block(lp, x, cfg, positions, kv_out=None, i=0):
+    """Layer ``i`` (its attention window and RoPE, ``cfg.layer_window``
+    and ``cfg.layer_rope``) on the residual stream ``x``."""
     h = L.rms_norm(x, lp["ln_attn"], cfg.norm_eps)
-    q, k, v = L.qkv_proj(lp["attn"], h, cfg, positions)
+    q, k, v = L.qkv_proj(lp["attn"], h, cfg, positions, cfg.layer_rope(i))
     if kv_out is not None:
         kv_out.append((k, v))
-    o = L.attention(q, k, v, causal=True, window=cfg.window)
-    x = x + L.attn_out(lp["attn"], o, cfg)
+    o = L.attention(q, k, v, causal=True, window=cfg.layer_window(i))
+    x = x + _post(lp, "ln_attn_post", L.attn_out(lp["attn"], o, cfg, h), cfg)
     h = L.rms_norm(x, lp["ln_mlp"], cfg.norm_eps)
-    return x + _ffn(lp, h, cfg)
+    return x + _post(lp, "ln_mlp_post", _ffn(lp, h, cfg), cfg)
 
 
 def _inputs(params, tokens, cfg, prefix_embeds):
@@ -92,9 +109,9 @@ def forward(params, tokens, cfg, *, prefix_embeds=None, use_scan=True,
     x = _inputs(params, tokens, cfg, prefix_embeds)
     P = 0 if prefix_embeds is None else prefix_embeds.shape[1]
     positions = torch.arange(x.shape[1], device=x.device)[None]
-    for lp in params["layers"]:
+    for i, lp in enumerate(params["layers"]):
         x = L.constrain_acts(L.remat_call(block, remat, lp, x, cfg,
-                                          positions))
+                                          positions, None, i))
     return L.head_logits(params, x[:, P:], cfg)
 
 
@@ -157,8 +174,8 @@ def prefill(params, tokens, cfg, cache, *, prefix_embeds=None, **_):
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None]
     kv = []
-    for lp in params["layers"]:
-        x = block(lp, x, cfg, positions, kv_out=kv)
+    for i, lp in enumerate(params["layers"]):
+        x = block(lp, x, cfg, positions, kv_out=kv, i=i)
     write_prompt(cache, torch.stack([k for k, _ in kv]),
                  torch.stack([v for _, v in kv]), S)
     return L.head_logits(params, x[:, -1:], cfg), cache
@@ -178,7 +195,8 @@ def decode_step(params, token, cache, cfg, **_):
     for i, lp in enumerate(params["layers"]):
         kc, vc = cache["k"][i], cache["v"][i]
         hn = L.rms_norm(x, lp["ln_attn"], cfg.norm_eps)
-        q, k, v = L.qkv_proj(lp["attn"], hn, cfg, positions)
+        q, k, v = L.qkv_proj(lp["attn"], hn, cfg, positions,
+                             cfg.layer_rope(i))
         if quant:
             ks_s, vs_s = cache["k_scale"][i], cache["v_scale"][i]
             kq, k_sc = _kv_quantize(k)
@@ -193,9 +211,11 @@ def decode_step(params, token, cache, cfg, **_):
             kc[:, slot] = k[:, 0].to(kc.dtype)
             vc[:, slot] = v[:, 0].to(vc.dtype)
             k_full, v_full = kc, vc
-        o = L.attention_decode(q, k_full, v_full, pos + 1, window=cfg.window)
-        x = x + L.attn_out(lp["attn"], o, cfg)
+        o = L.attention_decode(q, k_full, v_full, pos + 1,
+                               window=cfg.layer_window(i))
+        x = x + _post(lp, "ln_attn_post", L.attn_out(lp["attn"], o, cfg, hn),
+                      cfg)
         hn = L.rms_norm(x, lp["ln_mlp"], cfg.norm_eps)
-        x = x + _ffn(lp, hn, cfg)
+        x = x + _post(lp, "ln_mlp_post", _ffn(lp, hn, cfg), cfg)
     cache["len"] = pos + 1
     return L.head_logits(params, x, cfg)[:, 0], cache

@@ -182,6 +182,12 @@ SPANS = (
     "paillier.unpack",      # limbs from the device back to ints
     "paillier.decode",      # L(x) mu mod n on the host
     "paillier.blind",       # blinding units r drawn
+    # model (MoE): the sigmoid router's layer (models.moe.sigmoid_block)
+    "moe.route",            # scores, the top k on score + bias, weights
+    "moe.dispatch",         # assignments sorted by held expert, rows
+    "moe.experts",          # the held experts' grouped products
+    "moe.combine",          # weighted outputs back to their tokens
+    "moe.bias",             # the selection bias moved after a step
     # kernel build
     "kernels.build",        # the libraries built or loaded
     # waits: the host blocks until the card has drained its stream
@@ -191,6 +197,7 @@ SPANS = (
     "wait.vec_decrypt",     # core.protocol.VecBox.decrypt's read-back
     "wait.rows_modulus",    # kernels.common.RowsModulus, index range read
     "wait.limbs",           # core.paillier_batch._limbs: pageable upload
+    "wait.moe.offsets",     # models.moe.grouped: group ends read (CPU)
 )
 #: every wait site, each a counter of ``obs_metrics.PROCESS``: the spans of
 #: :func:`wait`, then two sites too frequent for a span (tens an edge a

@@ -13,6 +13,10 @@ Port of ``repro.train.loop``:
   sharded over the data axes, ``TokenPipeline.next(mesh=...)``) DTensor's
   sharding propagation inserts every collective, as GSPMD does for the
   reference: loss, gradients and the global norm come out whole.
+* After the update, a sigmoid router's selection bias moves by the
+  step's assignment counts (``models.moe.update_bias``: DeepSeek-V3's
+  rule at rate ``cfg.bias_rate``), on the device; it is state outside
+  AdamW, with no gradient and no decay.
 * ``make_dp_compressed_step`` — the pure data-parallel step whose
   gradient all-reduce is the paper's Gamma quantizer with error feedback
   (``core.secure_agg``), over a ``torch.distributed`` process group
@@ -27,6 +31,7 @@ from __future__ import annotations
 from typing import Callable
 
 import contextlib
+import gc
 
 import torch
 import torch.distributed as dist
@@ -37,7 +42,8 @@ from . import optimizer as opt_mod
 from .. import resolve_device
 from ..core import secure_agg
 from ..launch.mesh import dp_world
-from ..models import registry
+from ..models import moe, registry
+from ..obs import trace
 
 
 def _grads(params) -> list:
@@ -100,7 +106,16 @@ def make_train_step(cfg, opt_cfg: opt_mod.OptConfig, *, use_scan=True,
                     remat=True, accum: int = 1, group=None) -> Callable:
     """(state, batch) -> (state, metrics) with ``loss``, ``grad_norm``
     and ``lr``.  ``batch`` holds this rank's rows, on the parameters'
-    device; ``use_scan`` is passed on as the reference passes it."""
+    device; ``use_scan`` is passed on as the reference passes it.
+
+    Every object alive when the step is made (modules, parameters,
+    optimizer state: they live as long as the training does) leaves the
+    cyclic collector's reach (``gc.freeze``): the objects a step's
+    autograd makes set off a full collection every few steps, and it then
+    walks only what the steps made, not the whole heap, whose walk
+    stalled the card for 0.1-0.27 s a time."""
+    gc.collect()
+    gc.freeze()
     model = registry.get_model(cfg)
 
     def loss_of(params, batch):
@@ -135,6 +150,8 @@ def make_train_step(cfg, opt_cfg: opt_mod.OptConfig, *, use_scan=True,
                 _mean_over(group, grads + [loss])
             params, opt_state, om = opt_mod.adamw_update(
                 grads, state["opt"], params, opt_cfg)
+        if cfg.router == "sigmoid":
+            _balance(params, cfg, None if sharded else group)
         params.zero_grad(set_to_none=True)
         new_state = {"params": params, "opt": opt_state,
                      "step": state["step"] + 1}
@@ -142,6 +159,18 @@ def make_train_step(cfg, opt_cfg: opt_mod.OptConfig, *, use_scan=True,
                            **{k: _whole(v) for k, v in om.items()}}
 
     return train_step
+
+
+def _balance(params, cfg, group) -> None:
+    """Each sigmoid router's selection bias moved by the step's
+    assignment counts (``moe.update_bias``), summed over the group's
+    ranks first."""
+    with trace.span("moe.bias"):
+        for lp in params["layers"]:
+            if "moe" in lp:
+                if dp_world(group) > 1:
+                    dist.all_reduce(lp["moe"]["counts"], group=group)
+                moe.update_bias(lp["moe"], cfg.bias_rate)
 
 
 def init_train_state(cfg, seed: int = 0, device=None) -> dict:
